@@ -1,0 +1,273 @@
+"""Configuration of the port: the knobs the eval render reads.
+
+A copy of the dataclasses of `hybridneuralrendering_tpu/config.py` that the
+render path needs (querier, points, aggregator, render, sampling), with the
+same fields and defaults, so that a preset here equals the JAX preset of the
+same name field by field (tests/test_torch_port_config.py checks it).  The
+training-only sub-configs (blur, loss, optim, probe, parallel) come with the
+training slice.
+
+`serve_config()` is the serving workload: `scannet_full` at the shapes of the
+JAX package's benchmark scene (600k synthetic points in a +-3.2 m box,
+480x640 images).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class QuerierConfig:
+    """Voxel-grid ray -> neighbour-point querier (static capacities)."""
+
+    vsize: Tuple[float, float, float] = (0.008, 0.008, 0.008)
+    vscale: Tuple[int, int, int] = (2, 2, 2)
+    kernel_size: Tuple[int, int, int] = (3, 3, 3)
+    query_size: Tuple[int, int, int] = (3, 3, 3)
+    z_depth_dim: int = 400            # candidate samples per ray
+    SR: int = 24                      # shading points kept per ray
+    K: int = 8                        # neighbours per shading point
+    P: int = 26                       # points stored per voxel
+    max_o: int = 610000               # occupied-voxel capacity
+    ranges: Tuple[float, float, float, float, float, float] = (
+        -10.0, -10.0, -10.0, 10.0, 10.0, 10.0)
+    grid_capacity: int = 48_000_000   # dense linear voxel table size
+    radius_limit_scale: float = 4.0
+    sample_jitter: float = 0.3
+    sample_mode: str = "linear"       # 'linear' | 'disparity'
+    # one packed bucket per kernel_size-dilated voxel (the K-NN fast path)
+    supervoxel: bool = True
+    Ps: int = 64                      # points per supervoxel bucket
+    max_nodes: int = 2_500_000        # supervoxel-node capacity
+
+    @property
+    def query_vsize(self) -> Tuple[float, float, float]:
+        return tuple(v * s for v, s in zip(self.vsize, self.vscale))
+
+    @property
+    def radius_limit(self) -> float:
+        return self.radius_limit_scale * max(self.vsize[0], self.vsize[1])
+
+
+@dataclass(frozen=True)
+class PointsConfig:
+    """Neural point cloud layout."""
+
+    num_points: int = 800_000
+    feature_dim: int = 32
+    color_mode: str = "1"
+    dir_mode: str = "1"
+    conf_mode: str = "1"
+    xyz_grad: bool = False
+    feat_grad: bool = True
+    conf_grad: bool = True
+    color_grad: bool = True
+    dir_grad: bool = True
+    feature_init_method: str = "rand"
+
+
+@dataclass(frozen=True)
+class AggregatorConfig:
+    """The viewmlp shading network + hybrid image-feature fusion.
+
+    The port's eval render reads the shading and fusion knobs; the training
+    knobs (drop, blur head, dedup, remat, chunks, fused VJP) are carried so
+    that presets compare field by field, and come into use with training."""
+
+    which_agg_model: str = "viewmlp"
+    agg_distance_kernel: str = "linear"
+    agg_dist_pers: int = 20
+    agg_intrp_order: int = 2
+    agg_weight_norm: bool = True
+    agg_axis_weight: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    apply_pnt_mask: bool = True
+    act_type: str = "leaky_relu"
+    act_super: bool = True
+
+    point_features_dim: int = 32
+    shading_feature_num: int = 256
+    shading_feature_mlp_layer1: int = 2
+    shading_feature_mlp_layer2: int = 0
+    shading_feature_mlp_layer3: int = 2
+    shading_alpha_mlp_layer: int = 1
+    shading_color_mlp_layer: int = 4
+    shading_color_channel_num: int = 3
+
+    num_pos_freqs: int = 10
+    num_viewdir_freqs: int = 4
+    num_feat_freqs: int = 3
+    dist_xyz_freq: int = 5
+    dist_xyz_deno: float = 0.0
+
+    agg_feat_xyz_mode: str = "None"
+    agg_alpha_xyz_mode: str = "None"
+    agg_color_xyz_mode: str = "None"
+    point_color_mode: str = "1"
+    point_dir_mode: str = "1"
+    # per-matmul compute dtype; 'float32' runs full precision
+    compute_dtype: str = "float32"
+    # dtype of the whole image-pyramid chain (convs, maps, upsampling, table)
+    pyramid_dtype: str = "bfloat16"
+    # dtype of the per-neighbour shading chain; the K-sum stays float32
+    shading_dtype: str = "bfloat16"
+    remat_chain: bool = False
+    chain_chunks: int = 1
+    fused_leaky_vjp: bool = False
+    dedup_gather: int = 98_304
+    dedup_uncached: bool = False
+
+    use_nearest: int = 4
+    select_high_quality: bool = False
+    dynamic_nearest: bool = False
+    dynamic_nearest_pool: int = 8
+    staged_materialize: bool = True
+    feature_guidance: bool = True
+    use_delta_view: bool = True
+    downweight_blurry_feats: bool = False
+    tradition_attention: bool = False
+    use_gumbel_softmax: bool = False
+    frame_level_attention: bool = False
+    mixup_mode: str = "partial"
+    learn_residuals: bool = True
+    dynamic_weight: bool = False
+    separate_color_decoder: bool = False
+    large_color_final_block: bool = False
+    add_idx: bool = False
+    disable_viewdirs: bool = False
+    disable_color_feature: bool = False
+
+    drop_ratio: float = 0.5
+    random_position: int = 1
+    ray_points: bool = True
+    drop_patch: bool = True
+
+    learnable_blur_kernel: bool = False
+    learnable_blur_kernel_size: int = 9
+    learnable_blur_kernel_mode: int = 4
+    learnable_blur_kernel_conv: bool = False
+    learnable_blur_kernel_norm: int = 0
+    learnable_blur_patch_size: int = 8
+    boundary_mode: int = 0
+
+    sparse_loss_weight: float = 0.0
+
+    @property
+    def aux_feature_channels(self) -> int:
+        """RGB + 3 CNN pyramid stages with channel expansion x2: 45."""
+        e = 2
+        return 3 * (1 + e + e ** 2 + e ** 3)
+
+    @property
+    def dist_dim(self) -> int:
+        return ((4 if self.agg_dist_pers == 30 else 6)
+                if self.agg_dist_pers > 9 else 3)
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    which_ray_generation: str = "near_far_linear"
+    which_render_func: str = "radiance"
+    which_blend_func: str = "alpha"
+    which_tonemap_func: str = "off"
+    raydist_mode_unit: bool = True
+    bg_color: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    near_plane: float = 0.1
+    far_plane: float = 8.0
+    bgmodel: str = "no"
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    random_sample: str = "dilated"
+    random_sample_size: int = 56
+    dilation_patch_num: int = 7
+    dilation_patch_size: int = 8
+    dilation_max: int = 8
+    dilation_min: int = 1
+    edge_filter: int = 10
+    # rays per eval chunk (0 = the training batch size)
+    eval_chunk_rays: int = 0
+
+    @property
+    def rays_per_batch(self) -> int:
+        return self.random_sample_size ** 2
+
+    @property
+    def eval_rays(self) -> int:
+        return self.eval_chunk_rays or self.rays_per_batch
+
+
+@dataclass(frozen=True)
+class Config:
+    name: str = "default"
+    querier: QuerierConfig = field(default_factory=QuerierConfig)
+    points: PointsConfig = field(default_factory=PointsConfig)
+    agg: AggregatorConfig = field(default_factory=AggregatorConfig)
+    render: RenderConfig = field(default_factory=RenderConfig)
+    sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    image_hw: Tuple[int, int] = (480, 640)
+    seed: int = 0
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def scannet_full(scan: str = "scene0241_01") -> Config:
+    """ScanNet full pipeline (dev_scripts/w_scannet_etf/scene241_full.sh)."""
+    return Config(
+        name=f"{scan}_full",
+        querier=QuerierConfig(),
+        agg=AggregatorConfig(),
+        sampling=SamplingConfig(eval_chunk_rays=16384),
+    )
+
+
+SERVE_NUM_POINTS = 600_000
+
+
+def serve_config() -> Config:
+    """`scannet_full` at the benchmark scene's shapes (the JAX package's
+    bench.py:bench_config): the synthetic scene lives in +-3 m, so the grid
+    ranges shrink to +-3.2 and the capacities follow; vsize, SR, K and the
+    network widths stay canonical."""
+    cfg = scannet_full()
+    return cfg.replace(
+        querier=QuerierConfig(
+            ranges=(-3.2, -3.2, -3.2, 3.2, 3.2, 3.2),
+            grid_capacity=70_000_000,
+            Ps=32, max_nodes=4_000_000),
+        points=PointsConfig(num_points=SERVE_NUM_POINTS),
+        image_hw=(480, 640),
+    )
+
+
+def tiny_test() -> Config:
+    """Small everything: CPU-testable shapes, float32 chains."""
+    return Config(
+        name="tiny",
+        querier=QuerierConfig(
+            vsize=(0.05, 0.05, 0.05), vscale=(2, 2, 2), SR=6, K=4, P=8,
+            max_o=4096, z_depth_dim=32, grid_capacity=200_000,
+            ranges=(-2.0, -2.0, -2.0, 2.0, 2.0, 2.0),
+            Ps=32, max_nodes=60_000),
+        points=PointsConfig(num_points=2048, feature_dim=8),
+        agg=AggregatorConfig(
+            point_features_dim=8, shading_feature_num=128, use_nearest=2,
+            num_feat_freqs=2, dist_xyz_freq=2, drop_ratio=0.5,
+            pyramid_dtype="float32", shading_dtype="float32"),
+        render=RenderConfig(near_plane=0.1, far_plane=4.0),
+        sampling=SamplingConfig(
+            random_sample="dilated", random_sample_size=8,
+            dilation_patch_num=2, dilation_patch_size=4, edge_filter=0),
+        image_hw=(48, 64),
+    )
+
+
+PRESETS = {
+    "scannet_full": scannet_full,
+    "serve": serve_config,
+    "tiny": tiny_test,
+}

@@ -1,0 +1,285 @@
+"""The viewmlp point aggregator with hybrid image-feature fusion, eval path
+(JAX: hybridneuralrendering_tpu/models/aggregator.py).
+
+Every MLP runs over the full [R, SR, K] neighbour block with `pnt_mask`
+zeroing the empty slots.  Under shading_dtype=bfloat16 the per-neighbour
+chain casts its inputs and weights once at entry and the K-sum accumulates
+in float32, as in the JAX package.  The train-time feature drop, the
+rematerialised chain and the chunked chain come with training.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from hybridneuralrendering_tpu_torch.config import AggregatorConfig
+from hybridneuralrendering_tpu_torch.core.cameras import pers_delta
+from hybridneuralrendering_tpu_torch.core.encoding import positional_encoding
+from hybridneuralrendering_tpu_torch.models import feature_pyramid, fusion, mlp
+
+
+def dist_weight(name: str, dists: torch.Tensor,
+                pnt_mask: torch.Tensor) -> torch.Tensor:
+    """dists [R, SR, K, C]; pnt_mask [R, SR, K] -> weights [R, SR, K].
+    Norms clamp under the sqrt, so masked (zero) slots stay finite."""
+    m = pnt_mask.to(dists.dtype)
+    if name == "linear":
+        return m * (1.0 / torch.sqrt(torch.clamp(
+            torch.sum(dists[..., :3] ** 2, dim=-1), min=1e-12)))
+    if name == "numlinear":
+        w = m / torch.sqrt(torch.clamp(torch.sum(dists ** 2, dim=-1),
+                                       min=1e-12))
+        return w / torch.clamp(torch.sum(m, dim=-1, keepdim=True), min=1.0)
+    if name == "quadric":
+        return m / torch.clamp(torch.sum(dists[..., :3] ** 2, dim=-1),
+                               min=1e-8)
+    if name == "numquadric":
+        return m / torch.clamp(torch.sum(dists ** 2, dim=-1), min=1e-8)
+    if name == "avg":
+        return m
+    if name == "trilinear":
+        d = 1.0 - torch.abs(dists[..., :3])
+        w = m * d[..., 0] * d[..., 1] * d[..., 2]
+        return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-8)
+    raise KeyError(f"unknown distance kernel {name}")
+
+
+def gradient_clamp(conf: torch.Tensor, lo=0.0001, hi=1.0) -> torch.Tensor:
+    """Clamped value forward, identity gradient."""
+    return conf - (conf - torch.clamp(conf, lo, hi)).detach()
+
+
+def raw2density(raw: torch.Tensor, act_super: bool) -> torch.Tensor:
+    return F.softplus(raw - 1.0) if act_super else F.relu(raw)
+
+
+def raw2color(raw: torch.Tensor, act_super: bool) -> torch.Tensor:
+    c = torch.sigmoid(raw)
+    if act_super:
+        c = c * (1 + 2 * 0.001) - 0.001
+    return c
+
+
+def block1_in_dim(cfg: AggregatorConfig) -> int:
+    dist_xyz_dim = (cfg.dist_dim if cfg.dist_xyz_freq == 0
+                    else 2 * abs(cfg.dist_xyz_freq) * cfg.dist_dim)
+    in_ch = cfg.point_features_dim
+    in_ch += 2 * cfg.num_feat_freqs * in_ch if cfg.num_feat_freqs > 0 else 0
+    in_ch += dist_xyz_dim if cfg.agg_intrp_order > 0 else 0
+    return in_ch
+
+
+def viewdir_channels(cfg: AggregatorConfig) -> int:
+    return 2 * cfg.num_viewdir_freqs * 3 if cfg.num_viewdir_freqs > 0 else 3
+
+
+def _check_supported(cfg: AggregatorConfig) -> None:
+    unported = {
+        "agg_distance_kernel in (sh_intrp, gau_intrp)":
+            cfg.agg_distance_kernel in ("sh_intrp", "gau_intrp"),
+        "tradition_attention": cfg.tradition_attention,
+        "compute_dtype != float32": cfg.compute_dtype != "float32",
+        "separate_color_decoder": cfg.separate_color_decoder,
+        "learnable_blur_kernel": cfg.learnable_blur_kernel,
+    }
+    missing = [k for k, v in unported.items() if v]
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+
+
+def init(gen: torch.Generator, cfg: AggregatorConfig, device="cpu") -> Dict:
+    """Random parameters of the shapes the JAX package's aggregator.init
+    makes (xavier-uniform from `gen`)."""
+    _check_supported(cfg)
+    act = cfg.act_type
+    F_ = cfg.shading_feature_num
+    half = F_ // 2
+    aux_c = cfg.aux_feature_channels
+
+    def stack(dims, final_act=False):
+        return mlp.mlp_init(gen, dims, act, final_act, device)
+
+    params: Dict = {}
+    if cfg.shading_feature_mlp_layer1 > 0:
+        params["block1"] = stack([block1_in_dim(cfg)]
+                                 + [F_] * cfg.shading_feature_mlp_layer1,
+                                 True)
+    if cfg.shading_feature_mlp_layer2 > 0:
+        params["block2"] = stack([F_] * (cfg.shading_feature_mlp_layer2 + 1),
+                                 True)
+    if cfg.shading_feature_mlp_layer3 > 0:
+        in3 = F_ + (3 if "1" in cfg.point_color_mode else 0) + (
+            4 if "1" in cfg.point_dir_mode else 0)
+        params["block3"] = stack([in3] + [F_] * cfg.shading_feature_mlp_layer3,
+                                 True)
+    params["alpha"] = stack([F_] + [half] * (cfg.shading_alpha_mlp_layer - 1)
+                            + [1])
+    c_in = F_ + viewdir_channels(cfg)
+    params["color"] = stack([c_in] + [half] * (cfg.shading_color_mlp_layer - 1)
+                            + [3])
+    params["color_feature"] = stack(
+        [c_in] + [half] * (cfg.shading_color_mlp_layer - 1), True)
+    if cfg.use_nearest >= 0:
+        fin = aux_c + half + (3 if cfg.use_delta_view else 0)
+        params["fusion_weight"] = stack([fin] + [half // 2] * 3 + [1])
+        params["pyramid"] = feature_pyramid.init(
+            gen, act, in_ch=3 + (2 if cfg.add_idx else 0), device=device)
+    if cfg.mixup_mode == "partial":
+        if half <= aux_c:
+            raise ValueError(f"partial mixup needs shading_feature_num/2 "
+                             f"({half}) > aux channels ({aux_c})")
+        mix_in, mix_out = 2 * aux_c, aux_c
+    else:
+        mix_in, mix_out = half + aux_c, half
+    mdims = [mix_in] + [mix_out] * 3 + ([1] if cfg.dynamic_weight else [])
+    params["mixup"] = stack(mdims, not cfg.learn_residuals
+                            and not cfg.dynamic_weight)
+    final_in = half if cfg.feature_guidance else aux_c
+    params["color_final"] = stack(
+        [final_in, final_in, 3] if cfg.large_color_final_block
+        else [final_in, 3])
+    return params
+
+
+class AggOutput(NamedTuple):
+    features: torch.Tensor          # [R, SR, 1+3] (sigma, rgb)
+    ray_valid: torch.Tensor         # [R, SR] bool
+    weight: torch.Tensor            # [R, SR, K]
+    conf_coefficient: torch.Tensor  # [R, SR, K]
+
+
+def build_dists(cfg: AggregatorConfig, sampled_xyz, sampled_xyz_pers,
+                sample_loc, sample_loc_w, sample_ray_dirs) -> torch.Tensor:
+    """Neighbour offsets by agg_dist_pers: world and/or perspective."""
+    p = cfg.agg_dist_pers
+    wd = sampled_xyz - sample_loc_w[..., None, :]
+    if p == 0:
+        return wd
+    if p == 1:
+        return sampled_xyz_pers - sample_loc[..., None, :]
+    if p == 2:
+        return pers_delta(sampled_xyz_pers, sample_loc)
+    if p == 10:
+        return torch.cat([wd, sampled_xyz_pers - sample_loc[..., None, :]],
+                         dim=-1)
+    if p == 20:
+        return torch.cat([wd, pers_delta(sampled_xyz_pers, sample_loc)],
+                         dim=-1)
+    if p == 30:
+        proj = torch.sum(wd * sample_ray_dirs[..., None, :], dim=-1,
+                         keepdim=True)
+        return torch.cat([proj, wd], dim=-1)
+    raise ValueError(f"illegal agg_dist_pers {p}")
+
+
+def _shading_chain(p: Dict, cfg: AggregatorConfig, emb, dflat, extras,
+                   mask_w):
+    """Per-neighbour MLP chain through the K-aggregation: returns
+    (density [R, SR, 1], aggregated feature [R, SR, F])."""
+    dists_enc = (positional_encoding(dflat, abs(cfg.dist_xyz_freq))
+                 if cfg.dist_xyz_freq != 0 else dflat)
+    ft = emb
+    if cfg.num_feat_freqs > 0:
+        ft = torch.cat([ft, positional_encoding(ft, cfg.num_feat_freqs)],
+                       dim=-1)
+    ft = torch.cat([ft, dists_enc], dim=-1)
+    if cfg.shading_dtype == "bfloat16":
+        ft = ft.to(torch.bfloat16)
+        extras = [e.to(torch.bfloat16) for e in extras]
+        p = {k: [{n: t.to(torch.bfloat16) for n, t in layer.items()}
+                 for layer in v] for k, v in p.items()}
+    ft = mlp.mlp_apply(p["block1"], ft, cfg.act_type, final_act=True)
+    if "block2" in p:
+        ft = mlp.mlp_apply(p["block2"], ft, cfg.act_type, final_act=True)
+    if "block3" in p:
+        ft = mlp.mlp_apply(p["block3"], torch.cat([ft] + extras, dim=-1),
+                           cfg.act_type, final_act=True)
+    if len(p["alpha"]) == 1:
+        a_raw = ft @ p["alpha"][0]["w"][:, 0] + p["alpha"][0]["b"][0]
+    else:
+        a_raw = mlp.mlp_apply(p["alpha"], ft, cfg.act_type)[..., 0]
+    a_raw = a_raw.to(mask_w.dtype)
+    # ft * mask_w promotes bf16 to f32: the K-sum accumulates in f32
+    return (torch.sum(raw2density(a_raw, cfg.act_super) * mask_w,
+                      dim=-1)[..., None],
+            torch.sum(ft * mask_w[..., None], dim=-2))
+
+
+def apply(params: Dict, cfg: AggregatorConfig, *,
+          sampled_xyz, sampled_xyz_pers, sampled_embedding, sampled_color,
+          sampled_dir, sampled_conf, pnt_mask, sample_loc, sample_loc_w,
+          sample_ray_dirs, vsize,
+          img_feat_n: Optional[torch.Tensor] = None,
+          sample_loc_i_n: Optional[torch.Tensor] = None,
+          delta_viewdir_n: Optional[torch.Tensor] = None,
+          frame_weight_n: Optional[torch.Tensor] = None,
+          view_mask: Optional[torch.Tensor] = None) -> AggOutput:
+    """Shade all [R, SR] samples from their K gathered neighbours (eval).
+
+    img_feat_n [V, H, W, 45] pyramid features of the nearest views;
+    sample_loc_i_n [V, R, SR, 2] reprojected pixel positions."""
+    _check_supported(cfg)
+    f32 = sampled_xyz.dtype
+    ray_valid = pnt_mask.any(dim=-1)
+    dists = build_dists(cfg, sampled_xyz, sampled_xyz_pers, sample_loc,
+                        sample_loc_w, sample_ray_dirs)
+    dists = dists * pnt_mask[..., None].to(f32)
+
+    if cfg.agg_distance_kernel == "trilinear":
+        weight = dist_weight("trilinear", dists * pnt_mask[..., None].to(f32)
+                             / vsize[2], pnt_mask)
+    else:
+        weight = dist_weight(cfg.agg_distance_kernel, dists, pnt_mask)
+    if (cfg.agg_weight_norm and cfg.agg_distance_kernel != "trilinear"
+            and not cfg.agg_distance_kernel.startswith("num")):
+        weight = weight / torch.clamp(torch.sum(weight, dim=-1, keepdim=True),
+                                      min=1e-8)
+    conf_coefficient = gradient_clamp(sampled_conf)
+    w = weight * conf_coefficient
+
+    dists_flat = dists
+    if cfg.dist_xyz_deno > 0:
+        dists_flat = dists_flat / (cfg.dist_xyz_deno
+                                   * float(np.linalg.norm(vsize)))
+    vdirs = positional_encoding(sample_ray_dirs, cfg.num_viewdir_freqs,
+                                ori=True)
+    ori_viewdirs, vdirs_enc = vdirs[..., :3], vdirs[..., 3:]
+
+    extras = []
+    if cfg.shading_feature_mlp_layer3 > 0:
+        if "1" in cfg.point_color_mode:
+            extras.append(sampled_color)
+        if "1" in cfg.point_dir_mode:
+            extras += [sampled_dir - ori_viewdirs[..., None, :],
+                       torch.sum(sampled_dir * ori_viewdirs[..., None, :],
+                                 dim=-1, keepdim=True)]
+    mask_w = pnt_mask.to(f32) * w
+    chain_params = {k: params[k] for k in ("block1", "block2", "block3",
+                                           "alpha") if k in params}
+    with record_function("agg.chain"):
+        alpha, feat_agg = _shading_chain(chain_params, cfg,
+                                         sampled_embedding, dists_flat,
+                                         extras, mask_w)
+
+    vd = torch.zeros_like(vdirs_enc) if cfg.disable_viewdirs else vdirs_enc
+    color_feature = mlp.mlp_apply(params["color_feature"],
+                                  torch.cat([feat_agg, vd], dim=-1),
+                                  cfg.act_type, final_act=True)
+    if cfg.disable_color_feature:
+        color_feature = color_feature * 0.0
+
+    with record_function("agg.fusion"):
+        merged = fusion.image_fusion(params, cfg, color_feature, img_feat_n,
+                                     sample_loc_i_n, delta_viewdir_n,
+                                     frame_weight_n, view_mask)
+    color_feature_mix = fusion.mixup(params, cfg, color_feature, merged)
+    rgb = raw2color(mlp.mlp_apply(params["color_final"], color_feature_mix,
+                                  cfg.act_type), cfg.act_super)
+    out = torch.cat([alpha, rgb], dim=-1) * ray_valid[..., None].to(f32)
+    return AggOutput(features=out, ray_valid=ray_valid, weight=weight,
+                     conf_coefficient=conf_coefficient)

@@ -1,0 +1,89 @@
+"""Hybrid image-feature fusion and mixup
+(JAX: hybridneuralrendering_tpu/models/fusion.py).
+
+Per-view pyramid features are read at each shading point's reprojection,
+merged across views by a learned weight MLP, and mixed with the 3D colour
+feature.  The eval path: no feature drop.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from hybridneuralrendering_tpu_torch.config import AggregatorConfig
+from hybridneuralrendering_tpu_torch.models import mlp
+
+
+def image_fusion(params: Dict, cfg: AggregatorConfig,
+                 color_feature: torch.Tensor,
+                 img_feat_n: Optional[torch.Tensor],
+                 sample_loc_i_n: Optional[torch.Tensor],
+                 delta_viewdir_n: Optional[torch.Tensor],
+                 frame_weight_n: Optional[torch.Tensor] = None,
+                 view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Merged per-sample image feature [R, SR, aux_c], zeros when the image
+    branch is off.  img_feat_n [V, H, W, C]; sample_loc_i_n [V, R, SR, 2]
+    pixel positions; delta_viewdir_n [V, R, SR, 3]."""
+    f32 = color_feature.dtype
+    aux_c = cfg.aux_feature_channels
+    if not (cfg.use_nearest > 0 and img_feat_n is not None):
+        return color_feature.new_zeros(color_feature.shape[:-1] + (aux_c,))
+    if cfg.tradition_attention:
+        raise NotImplementedError(
+            "attention fusion (tradition_attention) is not ported yet")
+    V, H, W, C = img_feat_n.shape
+    px = sample_loc_i_n[..., 0].to(torch.int32)                 # [V, R, SR]
+    py = sample_loc_i_n[..., 1].to(torch.int32)
+    valid = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    if view_mask is not None:
+        valid = valid & (view_mask > 0)[:, None, None]
+    pxc, pyc = px.clamp(0, W - 1).long(), py.clamp(0, H - 1).long()
+    vidx = torch.arange(V, device=px.device)[:, None, None]
+    fid = (vidx * H + pyc) * W + pxc
+    img_feat = img_feat_n.reshape(V * H * W, C)[fid][..., :aux_c]
+    img_feat = img_feat * valid[..., None].to(f32)
+
+    parts = [img_feat, color_feature[None]]
+    if cfg.use_delta_view:
+        parts.append(delta_viewdir_n)
+    layers = params["fusion_weight"]
+    h = mlp.mlp_apply_split(layers[:-1], parts, cfg.act_type, final_act=True)
+    head = layers[-1]
+    fusion_w = torch.sigmoid(h @ head["w"][:, 0] + head["b"][0])
+    fusion_w = fusion_w * valid.to(f32)                          # [V, R, SR]
+    if cfg.downweight_blurry_feats and frame_weight_n is not None:
+        fusion_w = fusion_w * frame_weight_n[:, None, None]
+    return torch.sum(img_feat * fusion_w[..., None], dim=0) / (
+        torch.sum(fusion_w, dim=0)[..., None] + 1e-6)
+
+
+def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,
+          merged: torch.Tensor) -> torch.Tensor:
+    """Mix the 3D colour feature with the merged image feature."""
+    aux_c = cfg.aux_feature_channels
+    if cfg.mixup_mode == "partial":
+        intrinsic = color_feature[..., :aux_c]
+        view_part = color_feature[..., aux_c:]
+        mix_in = torch.cat([intrinsic, merged], dim=-1)
+        if cfg.dynamic_weight:
+            bw = torch.sigmoid(mlp.mlp_apply(params["mixup"], mix_in,
+                                             cfg.act_type))
+            mixed = (1 - bw) * intrinsic + bw * merged
+        else:
+            mixed = mlp.mlp_apply(params["mixup"], mix_in, cfg.act_type,
+                                  final_act=not cfg.learn_residuals)
+        if cfg.learn_residuals:
+            mixed = mixed + intrinsic
+        return torch.cat([mixed, view_part], dim=-1)
+    mix_in = torch.cat([color_feature, merged], dim=-1)
+    if cfg.dynamic_weight:
+        bw = torch.sigmoid(mlp.mlp_apply(params["mixup"], mix_in,
+                                         cfg.act_type))
+        return (1 - bw) * color_feature + bw * merged
+    out = mlp.mlp_apply(params["mixup"], mix_in, cfg.act_type,
+                        final_act=not cfg.learn_residuals)
+    if cfg.learn_residuals:
+        out = out + color_feature
+    return out

@@ -1,0 +1,153 @@
+"""Neural point cloud (JAX: hybridneuralrendering_tpu/models/neural_points.py).
+
+A fixed-capacity cloud: all five per-point attributes live stacked in one
+table [N, table_width] (xyz | embedding | conf | color | dirs | zero pad),
+live points marked by `mask`.  The eval render gathers rows of the table for
+the [R, SR, K] neighbour ids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from hybridneuralrendering_tpu_torch.config import PointsConfig
+from hybridneuralrendering_tpu_torch.device import resolve
+
+ATTR_ORDER = ("xyz", "embedding", "conf", "color", "dirs")
+
+
+def attr_widths(feature_dim: int) -> Tuple[int, ...]:
+    return (3, feature_dim, 1, 3, 3)
+
+
+def table_width(feature_dim: int) -> int:
+    """Stacked row width, zero-padded to a multiple of 64."""
+    used = sum(attr_widths(feature_dim))
+    return used + (-used) % 64
+
+
+@dataclasses.dataclass
+class NeuralPoints:
+    table: torch.Tensor       # [N, table_width(F)] f32
+    mask: torch.Tensor        # [N] bool, live point
+    num_live: int
+    feature_dim: int = 32
+    trainable: Tuple[bool, ...] = (False, True, True, True, True)
+
+    def _view(self, name: str) -> torch.Tensor:
+        o = 0
+        for nm, w in zip(ATTR_ORDER, attr_widths(self.feature_dim)):
+            if nm == name:
+                return self.table[:, o:o + w]
+            o += w
+        raise KeyError(name)
+
+    @property
+    def xyz(self) -> torch.Tensor:
+        return self._view("xyz")
+
+    @property
+    def embedding(self) -> torch.Tensor:
+        return self._view("embedding")
+
+    @property
+    def conf(self) -> torch.Tensor:
+        return self._view("conf")
+
+    @property
+    def color(self) -> torch.Tensor:
+        return self._view("color")
+
+    @property
+    def dirs(self) -> torch.Tensor:
+        return self._view("dirs")
+
+    @property
+    def capacity(self) -> int:
+        return self.table.shape[0]
+
+
+def build_table(feature_dim: int, xyz, embedding, conf, color,
+                dirs) -> np.ndarray:
+    """Stacked table [n, table_width] f32 from per-attribute host arrays."""
+    n = len(xyz)
+    parts = [np.asarray(p, np.float32).reshape(n, -1)
+             for p in (xyz, embedding, conf, color, dirs)]
+    used = sum(p.shape[1] for p in parts)
+    pad = np.zeros((n, table_width(feature_dim) - used), np.float32)
+    return np.concatenate(parts + [pad], axis=1)
+
+
+def init_from_arrays(xyz: np.ndarray, cfg: PointsConfig,
+                     embedding: Optional[np.ndarray] = None,
+                     conf: Optional[np.ndarray] = None,
+                     color: Optional[np.ndarray] = None,
+                     dirs: Optional[np.ndarray] = None,
+                     generator: Union[np.random.Generator,
+                                      torch.Generator, None] = None,
+                     device="cuda") -> NeuralPoints:
+    """Padded NeuralPoints of capacity cfg.num_points from host arrays.
+
+    A missing embedding is drawn as normal * 0.1 from `generator` (a numpy
+    or CPU torch generator; numpy seed 0 when None), a missing conf is 1."""
+    dev = resolve(device)
+    n = len(xyz)
+    cap = cfg.num_points
+    if n > cap:
+        raise ValueError(f"{n} points exceed capacity {cap}")
+
+    def pad(a, width):
+        out = np.zeros((cap, width), np.float32)
+        if a is not None:
+            out[:n] = np.asarray(a, np.float32).reshape(n, width)
+        return out
+
+    if embedding is None:
+        if isinstance(generator, torch.Generator):
+            emb = torch.randn((n, cfg.feature_dim), generator=generator)
+            emb = emb.numpy() * 0.1
+        else:
+            rng = generator if generator is not None \
+                else np.random.default_rng(0)
+            emb = rng.standard_normal((n, cfg.feature_dim)) * 0.1
+        embedding = emb
+    conf = conf if conf is not None else np.ones((n, 1))
+    table = build_table(cfg.feature_dim, pad(xyz, 3),
+                        pad(embedding, cfg.feature_dim), pad(conf, 1),
+                        pad(color, 3), pad(dirs, 3))
+    mask = np.zeros(cap, bool)
+    mask[:n] = True
+    return NeuralPoints(
+        table=torch.as_tensor(table, device=dev),
+        mask=torch.as_tensor(mask, device=dev), num_live=n,
+        feature_dim=cfg.feature_dim,
+        trainable=(cfg.xyz_grad, cfg.feat_grad, cfg.conf_grad,
+                   cfg.color_grad, cfg.dir_grad))
+
+
+class SampledPoints(NamedTuple):
+    """Per-neighbour gathered attributes, [R, SR, K, .]."""
+
+    xyz: torch.Tensor         # [R, SR, K, 3]
+    embedding: torch.Tensor   # [R, SR, K, F]
+    conf: torch.Tensor        # [R, SR, K]
+    color: torch.Tensor       # [R, SR, K, 3]
+    dirs: torch.Tensor        # [R, SR, K, 3]
+
+
+def gather(points: NeuralPoints, sample_pidx: torch.Tensor) -> SampledPoints:
+    """Rows of the point table for neighbour ids [R, SR, K]; empty slots
+    (-1) read row 0 and are masked downstream by pnt_mask.  One row gather
+    of the stacked table, then a split."""
+    idx = torch.clamp(sample_pidx, min=0).long()
+    out = points.table[idx]
+    xyz, emb, conf, color, dirs = torch.split(
+        out, list(attr_widths(points.feature_dim)) + [
+            out.shape[-1] - sum(attr_widths(points.feature_dim))],
+        dim=-1)[:5]
+    return SampledPoints(xyz=xyz, embedding=emb, conf=conf[..., 0],
+                         color=color, dirs=dirs)

@@ -1,0 +1,130 @@
+"""End-to-end hybrid point-based renderer, eval path
+(JAX: hybridneuralrendering_tpu/models/renderer.py).
+
+query voxel grid -> gather point attributes -> reproject shading points into
+the nearest views -> aggregate (viewmlp + hybrid fusion) -> ray distances ->
+alpha compositing.  Miss rays stay masked (`ray_mask`) and composite to the
+background colour.  Each stage runs inside a torch.profiler range named
+"render.<stage>", so a profile of a request attributes device time by stage
+(chip_smoke.py --profile).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from hybridneuralrendering_tpu_torch.config import Config
+from hybridneuralrendering_tpu_torch.core import march
+from hybridneuralrendering_tpu_torch.core.cameras import (
+    delta_viewdirs, w2iproject, w2pers)
+from hybridneuralrendering_tpu_torch.device import resolve
+from hybridneuralrendering_tpu_torch.models import aggregator as agg
+from hybridneuralrendering_tpu_torch.models import feature_pyramid
+from hybridneuralrendering_tpu_torch.models import neural_points as npts
+from hybridneuralrendering_tpu_torch.ops import query as Q
+from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
+
+
+def init_params(cfg: Config, seed: int = 0, device="cuda") -> Dict:
+    """Random full-width parameters from a seeded torch.Generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"aggregator": agg.init(gen, cfg.agg, device=resolve(device))}
+
+
+def _chain_dtype(cfg: Config) -> Optional[torch.dtype]:
+    return torch.bfloat16 if cfg.agg.pyramid_dtype == "bfloat16" else None
+
+
+def compute_image_features(params: Dict, cfg: Config,
+                           images_nearest: torch.Tensor) -> torch.Tensor:
+    """[V, H, W, 3] -> [V, H, W, 45] pyramid features of the nearest views
+    (in pyramid_dtype)."""
+    with record_function("render.pyramid"):
+        return feature_pyramid.apply(params["aggregator"]["pyramid"],
+                                     images_nearest, cfg.agg.act_type,
+                                     chain_dtype=_chain_dtype(cfg))
+
+
+def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
+           batch: Dict, cfg: Config,
+           img_feat_n: Optional[torch.Tensor] = None) -> Dict:
+    """Deterministic render of one batch of rays (no jitter, no drop).
+
+    batch: 'campos' [3], 'camrotc2w' [3,3], 'raydir' [R,3], 'bg_color' [3];
+    the hybrid branch adds 'images_nearest' [V,H,W,3], 'c2w_nearest'
+    [V,4,4], 'campos_nearest' [V,3], 'intrinsic_nearest' [3,3] and
+    optionally 'frame_weight_nearest' [V] and 'view_mask' [V].
+    `img_feat_n` passes precomputed pyramid features of the nearest views."""
+    if "bg_ray" in batch:
+        raise NotImplementedError("plane backgrounds (bg_ray) are not "
+                                  "ported yet")
+    acfg, qcfg, rcfg = cfg.agg, cfg.querier, cfg.render
+    campos, raydir = batch["campos"], batch["raydir"]
+    R = raydir.shape[0]
+
+    with record_function("render.query"):
+        qres = Q.query_points(grid, points.xyz, campos, raydir, qcfg,
+                              rcfg.near_plane, rcfg.far_plane)
+    with record_function("render.gather"):
+        sampled = npts.gather(points, qres.sample_pidx)
+    with record_function("render.project"):
+        sample_loc = w2pers(qres.sample_loc_w, batch["camrotc2w"], campos)
+        sampled_xyz_pers = w2pers(sampled.xyz, batch["camrotc2w"], campos)
+        sample_ray_dirs = raydir[:, None, :].expand(R, qcfg.SR, 3)
+        sample_loc_i_n = delta_vd_n = frame_w_n = None
+        hybrid = acfg.use_nearest > 0 and "c2w_nearest" in batch
+        if hybrid:
+            intr_n = batch["intrinsic_nearest"]
+            sample_loc_i_n = torch.stack(
+                [w2iproject(qres.sample_loc_w, intr_n, c2w)[0]
+                 for c2w in batch["c2w_nearest"]])             # [V,R,SR,2]
+            delta_vd_n = torch.stack(
+                [delta_viewdirs(qres.sample_loc_w, campos, cn)
+                 for cn in batch["campos_nearest"]])           # [V,R,SR,3]
+            frame_w_n = batch.get("frame_weight_nearest")
+    if not hybrid:
+        img_feat_n = None
+    elif img_feat_n is None:
+        img_feat_n = compute_image_features(params, cfg,
+                                            batch["images_nearest"])
+
+    with record_function("render.aggregate"):
+        out = agg.apply(
+            params["aggregator"], acfg,
+            sampled_xyz=sampled.xyz, sampled_xyz_pers=sampled_xyz_pers,
+            sampled_embedding=sampled.embedding,
+            sampled_color=sampled.color, sampled_dir=sampled.dirs,
+            sampled_conf=sampled.conf, pnt_mask=qres.pnt_mask,
+            sample_loc=sample_loc, sample_loc_w=qres.sample_loc_w,
+            sample_ray_dirs=sample_ray_dirs, vsize=qcfg.query_vsize,
+            img_feat_n=img_feat_n, sample_loc_i_n=sample_loc_i_n,
+            delta_viewdir_n=delta_vd_n, frame_weight_n=frame_w_n,
+            view_mask=batch.get("view_mask"))
+
+    with record_function("render.march"):
+        ray_dist = march.ray_dist_from_depth(
+            sample_loc[..., 2], out.ray_valid, qcfg.query_vsize[2],
+            rcfg.raydist_mode_unit)
+        bg_color = batch.get("bg_color")
+        if bg_color is None:
+            bg_color = torch.tensor(rcfg.bg_color, device=raydir.device)
+        (ray_color, _, opacity, _, blend_weight, bg_trans,
+         _) = march.ray_march(
+            ray_dist, out.ray_valid, out.features,
+            march.RENDER_FUNCS[rcfg.which_render_func],
+            march.BLEND_FUNCS[rcfg.which_blend_func], bg_color)
+        ray_color = march.TONEMAP_FUNCS[rcfg.which_tonemap_func](ray_color)
+    return {
+        "coarse_raycolor": ray_color,              # [R, 3]
+        "coarse_point_opacity": opacity,           # [R, SR]
+        "coarse_is_background": bg_trans,          # [R, 1]
+        "ray_mask": qres.ray_mask,                 # [R]
+        "ray_valid": out.ray_valid,                # [R, SR]
+        "weight": out.weight,
+        "blend_weight": blend_weight,
+        "conf_coefficient": out.conf_coefficient,
+        "queried_shading": ~out.ray_valid.any(dim=-1, keepdim=True),
+    }

@@ -19,3 +19,9 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
 
 assert jax.default_backend() == "cpu"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is false")

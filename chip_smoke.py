@@ -1,32 +1,45 @@
-"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve.
+"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve, train.
 
     python3 chip_smoke.py [--profile]
 
 Phases, each printing one JSON progress line:
-  1. device   the card's name and power limit, torch and CUDA versions;
-  2. build    every CUDA kernel of the port, one nvcc per source, together;
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the serving shapes (exact equality), with times and bounds;
-  4. scene    the 600k-point serve_config scene, grid and random full-width
-              parameters, built on the card;
-  5. serve    4 requests of 16,384 rays through serve.render_rays, with
-              every kernel's launch count read over exactly that run;
-  6. check    the first rays of request 0 rendered again on the CPU through
-              the plain versions, compared with the card's result.
-`--profile` adds a torch.profiler pass over one more request and prints the
-kernels that took the most device time.
+  1. device      the card's name and power limit, torch and CUDA versions;
+  2. build       every CUDA kernel of the port, one nvcc per source, together;
+  3. kernels     each kernel against its plain PyTorch version on the card at
+                 the main path's shapes, with the tolerance it holds, times,
+                 bound and the time of one PyTorch library call (and the
+                 library cumsum as a yardstick for the unported scan kernel);
+  4. scene       the 600k-point serve_config scene, grid and random
+                 full-width parameters, built on the card;
+  5. serve       4 requests of 16,384 rays through serve.render_rays, with
+                 every kernel's launch count read over exactly that run;
+  6. check       the first rays of request 0 rendered again on the CPU
+                 through the plain versions, compared with the card's result;
+  7. train       train_config() on the same scene: 1 warm-up and 5 timed
+                 train_step calls of 3,136 rays (blur bank, frame weight, the
+                 pyramid CNN inside the step), every kernel's launch count
+                 read over exactly the timed steps; then the two segment
+                 sums of one more step, captured and held against the plain
+                 version;
+  8. train_check one step of 256 rays from one state on the card and on the
+                 CPU (plain versions), compared; the same on the card with
+                 each of four planted kernel faults must be rejected.
+`--profile` adds a torch.profiler pass over one more request and one more
+training step and prints the kernels that took the most device time.
 
-The last lines are the kernel table ({"kernels": [...]}), the card as
-nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
-non-zero before those lines.  The port's float32 matmuls and convolutions
-run without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False and
-serve sets cudnn's allow_tf32 False).
+The last lines are the kernel table ({"kernels": [...]}; `launches` sums
+the serve and train runs), the card as nvidia-smi names it, and
+{"ok": true, "device": {...}}.  Any failure exits non-zero before those
+lines.  The port's float32 matmuls and convolutions run without TF32
+(torch.backends.cuda.matmul.allow_tf32 stays False; serving and the
+training step set cudnn's allow_tf32 False).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import signal
 import subprocess
 import sys
@@ -38,10 +51,18 @@ DEVICE = "cuda"     # of the scene and requests; a CPU rehearsal sets "cpu"
 NUM_REQUESTS = 4
 RAYS_PER_REQUEST = 16_384
 CHECK_RAYS = 256
+TRAIN_STEPS = 5
+# the training-shape segment sum: R * SR * K cotangent rows onto the table;
+# the ids and empty slots a step has (the train phase's census, PERF.md)
+SEG_ROWS, SEG_COLS, SEG_IDS = 3_136 * 24 * 8, 64, 600_000
+SEG_TOUCHED, SEG_EMPTY = 68_315, 408_048
+# the train_check batch: 2x2 patches of 8x8 rays on the same scene
+CHECK_PATCHES, CHECK_PATCH_SIZE = 2, 8
 # published H100 SXM peaks (dense): bytes/s of HBM3, float32 op/s outside
-# the tensor cores
+# the tensor cores, bf16 op/s on them
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # tensor cores, dense
 
 
 def log(phase: str, **kw) -> None:
@@ -78,12 +99,36 @@ def phase_device():
     return smi
 
 
+def kernel_libs():
+    from hybridneuralrendering_tpu_torch.ops import adam, segment_sum, select
+    return {**select.KERNEL_LIBS, **segment_sum.KERNEL_LIBS,
+            **adam.KERNEL_LIBS}
+
+
+def launch_counters():
+    """name -> the wrapper that counts the kernel's launches."""
+    from hybridneuralrendering_tpu_torch.ops import adam, segment_sum, select
+    return {"k_smallest": select.k_smallest,
+            "segment_sum": segment_sum.segment_sum,
+            "adam_table": adam.adam_table}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
 def phase_build():
-    from hybridneuralrendering_tpu_torch.ops import build, select
+    from hybridneuralrendering_tpu_torch.ops import build
+    libs = kernel_libs()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(select.KERNEL_LIBS)) as pool:
+    with ThreadPoolExecutor(len(libs)) as pool:
         futs = [pool.submit(build.load_library, name, srcs)
-                for name, srcs in select.KERNEL_LIBS.items()]
+                for name, srcs in libs.items()]
         for f in futs:
             f.result()
     log("build", seconds=time.perf_counter() - t0,
@@ -110,13 +155,16 @@ def _select_bound_ms(S, C, K):
 
 
 def phase_kernels(cfg):
-    """K-min kernel vs plain at the serving shape and two others."""
+    """K-min kernel vs plain at the serving shape, the training step's
+    shape and two others."""
     import torch
     from hybridneuralrendering_tpu_torch.ops import select
     gen = torch.Generator(device="cuda").manual_seed(0)
     K = cfg.querier.K
     main_shape = (RAYS_PER_REQUEST * cfg.querier.SR, cfg.querier.Ps, K)
-    shapes = [main_shape, (75_264, 64, 8), (4_096, 702, 8)]
+    # serving; training (3,136 rays * SR); a wide row; per-voxel K-NN rows
+    shapes = [main_shape, (75_264, cfg.querier.Ps, K), (75_264, 64, 8),
+              (4_096, 702, 8)]
     rows = {}
     for S, C, k in shapes:
         d, ids = _select_inputs(S, C, gen)
@@ -137,6 +185,152 @@ def phase_kernels(cfg):
         log("kernels", kernel="k_smallest", **row)
         rows[(S, C, k)] = row
     return rows[main_shape]
+
+
+def _bound(bytes_, ops):
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _integer_rows(M, C, gen):
+    """Rows of integers in +-[1, 8]: every float32 partial sum of up to 2**21
+    of them is exact, so the kernel must equal its plain version bit for
+    bit, and one row summed twice, dropped or given to the neighbouring id
+    shows."""
+    import torch
+    mag = torch.randint(1, 9, (M, C), generator=gen, device="cuda")
+    sign = torch.randint(0, 2, (M, C), generator=gen, device="cuda") * 2 - 1
+    return (mag * sign).float()
+
+
+def segment_sum_row(sg, end_pos, n, label):
+    """The segment-sum kernel against its plain version on id-sorted rows
+    sg [M, C] with inclusive segment ends end_pos [n]:
+      - sg itself within the kernel's float32 summation bound
+        (ops/segment_sum.tolerance: (L//4 + L%4 + 3) * 2**-24 * sum|rows|
+        for a segment of L rows);
+      - integer rows with the same segments bit for bit; a planted fault
+        (the first row of the longest segment counted twice) must fail
+        that comparison;
+      - two launches bit for bit."""
+    import torch
+    from hybridneuralrendering_tpu_torch.ops import segment_sum as SS
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    M, C = sg.shape
+    got = SS.segment_sum(sg, end_pos, n)
+    again = SS.segment_sum(sg, end_pos, n)
+    want = SS.segment_sum_plain(sg, end_pos, n)
+    tol = SS.tolerance(sg, end_pos, n)
+    err = (got - want).abs()
+    q = _integer_rows(M, C, gen)
+    got_q = SS.segment_sum(q, end_pos, n)
+    want_q = SS.segment_sum_plain(q, end_pos, n)
+    lens = torch.diff(end_pos.long(), prepend=end_pos.new_full((1,), -1))
+    p = int(lens.argmax())
+    planted = got_q.clone()
+    planted[p] += q[int(end_pos[p]) - int(lens[p]) + 1]
+    torch.cuda.synchronize()
+    if not (err <= tol).all():
+        raise AssertionError(f"segment_sum kernel != plain ({label}): max "
+                             f"excess {float((err - tol).max())}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment_sum kernel is not deterministic "
+                             f"({label})")
+    if not torch.equal(got_q, want_q):
+        raise AssertionError(f"segment_sum kernel != plain on integer rows "
+                             f"({label})")
+    if torch.equal(planted, want_q):
+        raise AssertionError(f"segment_sum check passed a planted fault "
+                             f"({label})")
+    used = int(end_pos[-1]) + 1 if n else 0
+    ids = torch.repeat_interleave(torch.arange(n, device=sg.device), lens)
+    bound, by = _bound(used * C * 4 + n * 4 + n * C * 4, used * C)
+    row = dict(
+        shape=[M, C, n], ids=label, rows_in_segments=used,
+        touched_ids=int((lens > 0).sum()), max_segment=int(lens.max()),
+        tolerance="(L//4+L%4+3)*2^-24*sum|rows|; integer rows bitwise",
+        max_abs_err=float(err.max()),
+        max_err_over_tolerance=float((err / tol.clamp(min=1e-30)).max()),
+        integer_rows_bitwise=True, planted_fault_rejected=True,
+        bitwise_repeatable=True,
+        kernel_ms=cuda_ms(lambda: SS.segment_sum(sg, end_pos, n)),
+        plain_ms=cuda_ms(lambda: SS.segment_sum_plain(sg, end_pos, n)),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            n, C, device=sg.device).index_add_(0, ids, sg[:used])),
+        bound_ms=bound, bound_by=by)
+    log("kernels", kernel="segment_sum", **row)
+    return row
+
+
+def _sorted_segments(ids, n):
+    """Segment ends of ids [M] (n marks an empty slot) after a sort."""
+    import torch
+    from hybridneuralrendering_tpu_torch.models.neural_points import \
+        segment_ends
+    return segment_ends(torch.sort(ids.int()).values, n)
+
+
+def phase_kernels_train():
+    """Segment sum at the training shape (ids drawn like a step's: 68.3k
+    touched ids of 600k, the rest absent, two thirds of the rows empty
+    slots sorted after the last id) and duplicate-heavy (a few ids, long
+    segments); the table Adam over three accumulating steps at
+    [600,000, 64]."""
+    import torch
+    from hybridneuralrendering_tpu_torch.config import OptimConfig
+    from hybridneuralrendering_tpu_torch.ops import adam as A
+    from hybridneuralrendering_tpu_torch.train.state import lr_schedule
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sg = torch.randn(SEG_ROWS, SEG_COLS, generator=gen, device="cuda")
+    pool = torch.randperm(SEG_IDS, generator=gen, device="cuda")[
+        :SEG_TOUCHED]
+    ids = pool[torch.randint(0, SEG_TOUCHED, (SEG_ROWS,), generator=gen,
+                             device="cuda")]
+    ids[torch.randperm(SEG_ROWS, generator=gen, device="cuda")[
+        :SEG_EMPTY]] = SEG_IDS
+    segment_sum_row(sg, _sorted_segments(ids, SEG_IDS), SEG_IDS,
+                    "step-like")
+    heavy = torch.randint(0, 16, (SEG_ROWS,), generator=gen, device="cuda")
+    segment_sum_row(sg, _sorted_segments(heavy * 37_501, SEG_IDS), SEG_IDS,
+                    "16 ids")
+    # a yardstick for tools/pallas_scan.py:cumsum_rows, which is not ported:
+    # the library's cumsum at the shape the JAX gather backward gives it
+    bound, by = _bound(2 * SEG_ROWS * SEG_COLS * 4, SEG_ROWS * SEG_COLS)
+    log("unported", kernel="cumsum_rows", shape=[SEG_ROWS, SEG_COLS],
+        library_ms=cuda_ms(lambda: torch.cumsum(sg, dim=0)), bound_ms=bound,
+        bound_by=by)
+
+    N, C = SEG_IDS, SEG_COLS
+    o = OptimConfig()
+    sched = lr_schedule(o.plr, o)
+    p = torch.randn(N, C, generator=gen, device="cuda")
+    kern = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
+    plain = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
+    for step in range(3):
+        g = torch.randn(N, C, generator=gen, device="cuda")
+        s = A.adam_scalars(step, step, sched, o.beta1, o.beta2)
+        A.adam_table(kern[0], g, kern[1], kern[2], s)
+        A.adam_table_plain(plain[0], g, plain[1], plain[2], s)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError(f"adam_table kernel != plain: max abs err "
+                             f"{err}")
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = g
+    lib = torch.optim.Adam([lib_p], lr=o.plr, betas=(o.beta1, o.beta2),
+                           fused=True)
+    bound, by = _bound(7 * N * C * 4, 15 * N * C)
+    adam = dict(
+        shape=[N, C], steps=3, tolerance="bitwise", max_abs_err=err,
+        kernel_ms=cuda_ms(lambda: A.adam_table(kern[0], g, kern[1],
+                                               kern[2], s)),
+        plain_ms=cuda_ms(lambda: A.adam_table_plain(plain[0], g, plain[1],
+                                                    plain[2], s)),
+        library_ms=cuda_ms(lib.step), bound_ms=bound, bound_by=by)
+    log("kernels", kernel="adam_table", **adam)
+    return adam
 
 
 def phase_scene(cfg):
@@ -160,7 +354,6 @@ def phase_serve(cfg, points, grid, params):
     import torch
     from hybridneuralrendering_tpu_torch import serve
     from hybridneuralrendering_tpu_torch.data import synthetic
-    from hybridneuralrendering_tpu_torch.ops import select
     requests = [synthetic.make_synthetic_batch(
         cfg, seed=1 + i, num_rays=RAYS_PER_REQUEST, device=DEVICE)
         for i in range(NUM_REQUESTS)]
@@ -169,13 +362,13 @@ def phase_serve(cfg, points, grid, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     outs, ms = [], []
-    select.k_smallest.launches = 0
+    reset_launches()
     for req in requests:
         t0 = time.perf_counter()
         outs.append(serve.render_rays(params, points, grid, req, cfg))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"k_smallest": select.k_smallest.launches}
+    launches = read_launches()
     for i, out in enumerate(outs):
         for k, v in out.items():
             if v.shape[0] != RAYS_PER_REQUEST:
@@ -186,9 +379,10 @@ def phase_serve(cfg, points, grid, params):
     hit = float(torch.cat([o["ray_mask"] for o in outs]).float().mean())
     if hit <= 0:
         raise AssertionError("no ray hit the scene")
-    if launches["k_smallest"] != chunks:
-        raise AssertionError(f"k_smallest launched {launches['k_smallest']}"
-                             f" times for {chunks} chunks")
+    if launches != {"k_smallest": chunks, "segment_sum": 0,
+                    "adam_table": 0}:
+        raise AssertionError(f"serving launched {launches} for {chunks} "
+                             "chunks")
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
     log("serve", request_ms=ms, chunks=chunks, launches=launches,
         ray_hit_share=hit, rays_per_s=NUM_REQUESTS * RAYS_PER_REQUEST
@@ -198,26 +392,31 @@ def phase_serve(cfg, points, grid, params):
     return requests, outs, launches
 
 
-def phase_check(cfg, points, grid, params, request, out):
+def cpu(x):
+    """A copy on the CPU of a tensor, a NamedTuple, dict or list of them,
+    or a NeuralPoints."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: cpu(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [cpu(v) for v in x]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(cpu(v) for v in x))
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: cpu(getattr(x, f.name)) for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))})
+    return x
+
+
+def phase_check(cfg, points, grid, params, request, out, grid_c):
     """Rays of request 0 again on the CPU through the plain versions."""
     import torch
-    import dataclasses
     from hybridneuralrendering_tpu_torch import serve
-
-    def cpu(x):
-        if torch.is_tensor(x):
-            return x.cpu()
-        if isinstance(x, dict):
-            return {k: cpu(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [cpu(v) for v in x]
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(cpu(v) for v in x))
-        return x
-
-    grid_c = cpu(grid)
-    pts_c = dataclasses.replace(points, table=points.table.cpu(),
-                                mask=points.mask.cpu())
+    pts_c = cpu(points)
     req_c = cpu(dict(request, raydir=request["raydir"][:CHECK_RAYS]))
     t0 = time.perf_counter()
     ref = serve.render_rays(cpu(params), pts_c, grid_c, req_c, cfg)
@@ -239,23 +438,23 @@ def phase_check(cfg, points, grid, params, request, out):
         raise AssertionError(f"card and CPU renders differ: {bad}")
 
 
-def phase_profile(cfg, points, grid, params, request):
-    """One request under torch.profiler: device time by kernel and by
-    render stage (the record_function ranges of models/renderer.py), and
-    the share of the request's wall time the device was busy."""
+def profile(label, fn):
+    """fn() under torch.profiler: device time by kernel and by the
+    record_function ranges of the port (render.*, agg.*, train.*,
+    gather.*, adam.*), and the share of the wall time the device was
+    busy."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from hybridneuralrendering_tpu_torch import serve
+    from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.render_rays(params, points, grid, request, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    stage = ("render.", "agg.")     # record_function ranges, not kernels
+    stage = ("render.", "agg.", "train.", "gather.", "adam.")
     kernels = sorted(((e.self_device_time_total, e.key, e.count)
                       for e in events if e.device_type == DeviceType.CUDA
                       and not e.key.startswith(stage)), reverse=True)
@@ -267,11 +466,397 @@ def phase_profile(cfg, points, grid, params, request):
                           else "host"]
             side[e.name] = side.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
-    log("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log("profile", run=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1.0 - busy_ms / wall_ms,
         stage_span_ms=ranges,
         top_kernels=[{"name": k[:90], "device_ms": us / 1e3, "calls": c}
-                     for us, k, c in kernels[:12]])
+                     for us, k, c in kernels[:15]])
+
+
+def phase_profile(cfg, points, grid, params, request):
+    """One request under torch.profiler."""
+    from hybridneuralrendering_tpu_torch import serve
+    profile("serve", lambda: serve.render_rays(params, points, grid, request,
+                                               cfg))
+
+
+def unported_chain(cfg):
+    """A yardstick for tools/pallas_shading.py:fused_feat_alpha, which is
+    not ported: the port's per-neighbour chain (aggregator._shading_chain,
+    bf16) forward, and forward + backward, at the training step's
+    3,136 * 24 * 8 rows with random inputs, and the bound of that work
+    (matmul operations at the bf16 tensor-core peak: the backward does
+    twice the forward's)."""
+    import torch
+    from hybridneuralrendering_tpu_torch.models import aggregator as agg
+    from hybridneuralrendering_tpu_torch.models import renderer
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    a = cfg.agg
+    shape = (cfg.sampling.rays_per_batch, cfg.querier.SR, cfg.querier.K)
+    rows = shape[0] * shape[1] * shape[2]
+
+    def rand(*tail, scale=0.1):
+        x = torch.randn(*shape, *tail, generator=gen, device=DEVICE) * scale
+        return x.requires_grad_(True)
+
+    params = renderer.init_params(cfg, seed=2, device=DEVICE)["aggregator"]
+    chain = {k: [{n: t.requires_grad_(True) for n, t in layer.items()}
+                 for layer in params[k]]
+             for k in ("block1", "block2", "block3", "alpha") if k in params}
+    emb, dists = rand(a.point_features_dim), rand(a.dist_dim, scale=0.01)
+    extras = [rand(3), rand(3), rand(1)]
+    mask_w = torch.rand(*shape, generator=gen, device=DEVICE)
+
+    def fwd():
+        return agg._shading_chain(chain, a, emb, dists, extras, mask_w)
+
+    def fwd_bwd():
+        alpha, feat = fwd()
+        (alpha.sum() + feat.sum()).backward()
+
+    macs = sum(layer["w"].shape[0] * layer["w"].shape[1]
+               for v in chain.values() for layer in v)
+    ops = 2 * rows * macs
+    log("unported", kernel="fused_feat_alpha", rows=rows,
+        plain_fwd_ms=cuda_ms(fwd, 5), plain_fwd_bwd_ms=cuda_ms(fwd_bwd, 5),
+        bound_fwd_ms=ops / BF16_OPS_PER_S * 1e3,
+        bound_fwd_bwd_ms=3 * ops / BF16_OPS_PER_S * 1e3,
+        bound_by="operations")
+
+
+def phase_train(cfg, points, grid):
+    """train_config() on the serve scene: 1 warm-up step, then TRAIN_STEPS
+    timed steps; launch counts over exactly the timed steps."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.models import blur, renderer
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+    from hybridneuralrendering_tpu_torch.train import state as TS
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    t_setup = time.perf_counter()
+    params = renderer.init_params(cfg, seed=1, device=DEVICE)
+    pts = dataclasses.replace(points, table=points.table.clone())
+    st = TS.create_train_state(params, pts, cfg, device=DEVICE)
+    batches = [synthetic.make_synthetic_batch(cfg, seed=10 + i,
+                                              device=DEVICE)
+               for i in range(TRAIN_STEPS + 2)]
+    bank = torch.as_tensor(blur.generate_kernel_bank(cfg.blur),
+                           device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    R = cfg.sampling.rays_per_batch
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+
+    t0 = time.perf_counter()
+    st, _ = TT.train_step(st, grid, batches[0], bank, cfg, generator=gen)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    before = st.points.table.clone()
+    torch.cuda.reset_peak_memory_stats()
+    ms, items = [], []
+    reset_launches()
+    for b in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        st, it = TT.train_step(st, grid, b, bank, cfg, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        items.append({k: float(v) for k, v in it.items()})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    after = st.points.table
+    # per step: one K-min over the candidates; two segment sums (the point
+    # table's and the pyramid map's gather backward); one table Adam
+    want = {"k_smallest": TRAIN_STEPS, "segment_sum": 2 * TRAIN_STEPS,
+            "adam_table": TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, want {want}")
+    bad = [(i, k) for i, it in enumerate(items) for k, v in it.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"loss items not finite: {bad}")
+    F = cfg.points.feature_dim
+    xyz_fixed = bool(torch.equal(after[:, :3], before[:, :3]))
+    moved = (after[:, 3:3 + F + 7] != before[:, 3:3 + F + 7]).any(dim=1)
+    if not xyz_fixed or not bool(moved.any()):
+        raise AssertionError(f"xyz lanes fixed: {xyz_fixed}, rows whose "
+                             f"trainable lanes moved: {int(moved.sum())}")
+
+    # the two segment sums of one more step's backward (point table,
+    # pyramid map), captured and held against the plain version
+    captured = []
+    real = npts.segment_sum
+    npts.segment_sum = lambda sg, e, n: (
+        captured.append((sg.clone(), e.clone(), n)) or real(sg, e, n))
+    try:
+        TT.loss_and_grads(st, grid, batches[-1], bank, cfg, generator=gen)
+    finally:
+        npts.segment_sum = real
+    V, H, W = batches[-1]["images_nearest"].shape[:3]
+    labels = {st.points.capacity: "step: point table",
+              V * H * W: "step: pyramid map"}
+    if sorted(c[2] for c in captured) != sorted(labels):
+        raise AssertionError(f"a step's segment sums reduce onto "
+                             f"{[c[2] for c in captured]} rows")
+    step_rows = [segment_sum_row(*c, labels[c[2]])
+                 for c in sorted(captured, key=lambda c: c[2] != st.points
+                                 .capacity)]
+    steady = sorted(ms)[len(ms) // 2]
+    log("train", setup_seconds=setup_s, warmup_ms=warmup_ms, step_ms=ms,
+        median_step_ms=steady, min_step_ms=min(ms), max_step_ms=max(ms),
+        rays_per_step=R, rays_per_s=R / (steady / 1e3),
+        max_memory_allocated=peak, launches=launches,
+        loss_items_last=items[-1], xyz_lanes_unchanged=xyz_fixed,
+        rows_moved=int(moved.sum()),
+        step_segments={r["ids"]: {k: r[k] for k in (
+            "shape", "rows_in_segments", "touched_ids", "max_segment",
+            "kernel_ms")} for r in step_rows})
+    return st, batches[-1], bank, launches, step_rows[0]
+
+
+def _adam_agreement(g_card, g_cpu, d_card, d_cpu, lr):
+    """Adam's first step moves an element by about -lr * sign(g), so the
+    update follows the gradient's sign.  Counts: elements whose gradient
+    reaches 1e-2 of the largest and changes sign between the devices
+    (`large_flips`, must be 0); elements whose gradients agree in sign and
+    both exceed 1e-5 (so that eps = 1e-8 shifts the step by under 1e-3 *
+    lr) but whose updates differ by more than 1e-2 * lr (`disagree`, must
+    be 0); and the sign flips below that size (reported: gradients within
+    the rounding noise)."""
+    import torch
+    g_card, g_cpu = g_card.reshape(-1), g_cpu.reshape(-1)
+    flip = torch.sign(g_card) != torch.sign(g_cpu)
+    large = g_cpu.abs() >= 1e-2 * g_cpu.abs().max()
+    agree = ~flip & (torch.minimum(g_card.abs(), g_cpu.abs()) > 1e-5)
+    off = (d_card.reshape(-1) - d_cpu.reshape(-1)).abs() > 1e-2 * lr
+    return dict(large=int(large.sum()), large_flips=int((large & flip).sum()),
+                compared=int(agree.sum()), disagree=int((agree & off).sum()),
+                small_flips=int((flip & ~large).sum()))
+
+
+# train_check's limits, between the largest sound reading of the card
+# against the CPU and the reading of the planted fault each must reject
+# (PERF.md §6: sound 7.6e-7, 7.3e-3 and 3.5e-3; faults 4.8e-2, 0.50 and
+# 2.0e-2 on an H100)
+ITEM_REL_LIMIT = 1e-4
+TABLE_GRAD_LIMIT = 5e-2
+NET_GRAD_LIMIT = 8e-3
+
+
+class _Planted:
+    """Replaces module.name by make(real) inside a `with` block."""
+
+    def __init__(self, module, name, make):
+        self.module, self.name, self.make = module, name, make
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.make(self.real))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _faults(table_rows):
+    """name -> (the planted fault, the reading that must reject it).  Each
+    breaks one kernel's result on the main path: the segment sum of the
+    point table's (table_rows ids) or of the pyramid map's gather backward
+    loses each id's last row (a boundary off by one), the K-min loses each sample's
+    nearest neighbour, the table Adam runs with the next step's bias
+    correction."""
+    import torch
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+    from hybridneuralrendering_tpu_torch.ops import query
+    from hybridneuralrendering_tpu_torch.train import step as TT
+
+    def drop_last(on_table):
+        def make(real):
+            def segment_sum(sg, end_pos, n):
+                out = real(sg, end_pos, n)
+                if (n == table_rows) != on_table:
+                    return out
+                lens = torch.diff(end_pos.long(),
+                                  prepend=end_pos.new_full((1,), -1))
+                p = torch.nonzero(lens > 0)[:, 0]
+                out[p] -= sg[end_pos[p].long()]
+                return out
+            return segment_sum
+        return make
+
+    def drop_nearest(real):
+        def k_smallest(d, ids, k):
+            bd, bi = real(d, ids, k)
+            bd = bd.clone()
+            bd[:, 0] = query.BIG
+            return bd, bi
+        return k_smallest
+
+    def late_adam(real):
+        def adam_table(p, g, mu, nu, s):
+            real(p, g, mu, nu, s._replace(bc1=1 - s.b1 * (1 - s.bc1),
+                                          bc2=1 - s.b2 * (1 - s.bc2)))
+        return adam_table
+
+    return {"segment_sum (point table)": (
+                _Planted(npts, "segment_sum", drop_last(True)),
+                "table_grad_rel_l2"),
+            "segment_sum (pyramid map)": (
+                _Planted(npts, "segment_sum", drop_last(False)),
+                "net_grad_rel_l2"),
+            "k_smallest": (_Planted(query, "k_smallest", drop_nearest),
+                           "item_rel_err"),
+            "adam_table": (_Planted(TT, "adam_table", late_adam),
+                           "table_adam_equal")}
+
+
+def phase_train_check(cfg, points, grid, grid_c, params):
+    """One step of CHECK_PATCHES^2 patches of CHECK_PATCH_SIZE^2 rays from
+    one state on the card and on the CPU (plain versions).  The bf16
+    chains round at other points on the two devices.  The card's step must
+    agree with the CPU's:
+      - loss items to ITEM_REL_LIMIT relative (of max(|item|, 1e-3));
+      - the table gradient (row 0, which collects every empty neighbour
+        slot's conf term, apart from the other rows) to TABLE_GRAD_LIMIT
+        and the network gradient (all of it, and each part of the
+        aggregator apart: the small pyramid CNN would drown in the whole)
+        to NET_GRAD_LIMIT relative L2 error;
+      - after the step, the table must be exactly Adam of the card's own
+        gradient, from scalars computed here, and the network parameters
+        within one float32 rounding of theirs (2**-23 * |p|) plus
+        1e-5 * lr: torch._foreach_ divides by a Python number, which may
+        round otherwise;
+      - Adam's first step moves each element by about +-lr whatever the
+        gradient's size, so no gradient that reaches 1e-2 of the largest
+        may change sign, and where both gradients agree in sign and exceed
+        1e-5 the updates agree to 1e-2 * lr (_adam_agreement).
+    Then the card's step is run again with each of _faults() planted, and
+    the check must reject each of them."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.models import blur
+    from hybridneuralrendering_tpu_torch.ops import adam as A
+    from hybridneuralrendering_tpu_torch.train import state as TS
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    small = cfg.replace(sampling=dataclasses.replace(
+        cfg.sampling, random_sample_size=CHECK_PATCHES * CHECK_PATCH_SIZE,
+        dilation_patch_num=CHECK_PATCHES,
+        dilation_patch_size=CHECK_PATCH_SIZE))
+    R = small.sampling.rays_per_batch
+    o = small.optim
+    arrays = synthetic.batch_arrays(small, seed=99)
+    noise = torch.rand((R, small.querier.z_depth_dim),
+                       generator=torch.Generator().manual_seed(5))
+    bank = torch.as_tensor(blur.generate_kernel_bank(small.blur))
+    t0 = time.perf_counter()
+
+    def run(dev, g):
+        pts = dataclasses.replace(points, table=points.table.to(dev).clone(),
+                                  mask=points.mask.to(dev))
+        st = TS.create_train_state(TS.tree_map(torch.clone, params), pts,
+                                   small, device=dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+        items, g_net, g_table = TT.loss_and_grads(
+            st, g, b, bank.to(dev), small, noise=noise.to(dev))
+        p_before = [t.clone() for t in TS.tree_leaves(st.params)]
+        t_before = st.points.table.clone()
+        TT.apply_updates(st, g_net, g_table, small)
+        # Adam of this step's own gradient, from scalars computed here
+        s_t = A.adam_scalars(0, 0, TS.lr_schedule(o.plr, o), o.beta1,
+                             o.beta2)
+        s_n = A.adam_scalars(0, 0, TS.lr_schedule(o.lr, o), o.beta1,
+                             o.beta2)
+        want_t = t_before.clone()
+        A.adam_table_plain(want_t, g_table, torch.zeros_like(want_t),
+                           torch.zeros_like(want_t), s_t)
+        net_err = 0.0
+        for p, p0, gl in zip(TS.tree_leaves(st.params), p_before,
+                             TS.tree_leaves(g_net)):
+            w = p0.clone()
+            A.adam_table_plain(w, gl, torch.zeros_like(w),
+                               torch.zeros_like(w), s_n)
+            over = (p - w).abs() - 2.0 ** -23 * w.abs()
+            net_err = max(net_err, float(over.max()))
+        return dict(
+            items={k: float(v) for k, v in items.items()},
+            g_table=g_table.cpu(), d_table=(st.points.table - t_before).cpu(),
+            table_adam_equal=bool(torch.equal(st.points.table, want_t)),
+            net_adam_err=net_err,
+            g_net=torch.cat([x.reshape(-1).cpu()
+                             for x in TS.tree_leaves(g_net)]),
+            g_parts={f"{k}/{k2}": torch.cat([
+                x.reshape(-1).cpu() for x in TS.tree_leaves(v)])
+                for k, sub in g_net.items() for k2, v in sub.items()},
+            d_net=torch.cat([(a - b0).reshape(-1).cpu() for a, b0 in zip(
+                TS.tree_leaves(st.params), p_before)]))
+
+    def rel_l2(a, b):
+        d, r = float(torch.linalg.norm(a - b)), float(torch.linalg.norm(b))
+        return d / r if r > 0 else (0.0 if d == 0 else math.inf)
+
+    def readings(k, c):
+        return dict(
+            item_rel_err=max(abs(k["items"][n] - v) / max(abs(v), 1e-3)
+                             for n, v in c["items"].items()),
+            table_grad_rel_l2=rel_l2(k["g_table"][1:], c["g_table"][1:]),
+            table_row0_rel_l2=rel_l2(k["g_table"][0], c["g_table"][0]),
+            net_grad_rel_l2=rel_l2(k["g_net"], c["g_net"]),
+            net_part_rel_l2={n: rel_l2(v, c["g_parts"][n])
+                             for n, v in k["g_parts"].items()},
+            table_adam_equal=k["table_adam_equal"],
+            net_adam_err_over_lr=k["net_adam_err"] / o.lr)
+
+    def rejected(r):
+        return dict(
+            item_rel_err=r["item_rel_err"] > ITEM_REL_LIMIT,
+            table_grad_rel_l2=max(r["table_grad_rel_l2"],
+                                  r["table_row0_rel_l2"])
+            > TABLE_GRAD_LIMIT,
+            net_grad_rel_l2=max(r["net_grad_rel_l2"],
+                                *r["net_part_rel_l2"].values())
+            > NET_GRAD_LIMIT,
+            table_adam_equal=not r["table_adam_equal"],
+            net_adam_err=r["net_adam_err_over_lr"] > 1e-5)
+
+    card, ref = run(DEVICE, grid), run("cpu", grid_c)
+    sound = readings(card, ref)
+    upd_table = _adam_agreement(card["g_table"], ref["g_table"],
+                                card["d_table"], ref["d_table"], o.plr)
+    upd_net = _adam_agreement(card["g_net"], ref["g_net"], card["d_net"],
+                              ref["d_net"], o.lr)
+    controls = {}
+    for name, (fault, reading) in _faults(points.capacity).items():
+        with fault:
+            r = readings(run(DEVICE, grid), ref)
+        controls[name] = dict(r, rejected_by=reading,
+                              rejected=rejected(r)[reading])
+    log("train_check", rays=R, items_card=card["items"], sound=sound,
+        controls=controls, table_update=upd_table, net_update=upd_net,
+        limits=dict(items=f"rel {ITEM_REL_LIMIT} of max(|item|, 1e-3)",
+                    grads=f"rel L2: table {TABLE_GRAD_LIMIT}, network "
+                    f"and each part {NET_GRAD_LIMIT}",
+                    adam="of the card's own gradient: table bitwise, "
+                    "network 2^-23*|p| + 1e-5*lr",
+                    update="no sign flip where |g| >= 1e-2 max|g|; "
+                    "1e-2*lr where signs agree and both |g| > 1e-5"),
+        seconds=time.perf_counter() - t0)
+    failed = [k for k, v in rejected(sound).items() if v]
+    if (failed or upd_table["disagree"] or upd_net["disagree"]
+            or upd_table["large_flips"] or upd_net["large_flips"]
+            or upd_table["compared"] == 0):
+        raise AssertionError(f"card and CPU training steps differ: {failed}")
+    missed = [k for k, v in controls.items() if not v["rejected"]]
+    if missed:
+        raise AssertionError(f"train_check passed planted faults: {missed}")
+
+
+def phase_profile_train(cfg, st, grid, batch, bank):
+    """One more training step under torch.profiler."""
+    import torch
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    profile("train", lambda: TT.train_step(st, grid, batch, bank, cfg,
+                                           generator=gen))
 
 
 def main(argv=None) -> int:
@@ -292,22 +877,38 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     sel = phase_kernels(cfg)
+    adam = phase_kernels_train()
     points, grid, params = phase_scene(cfg)
-    requests, outs, launches = phase_serve(cfg, points, grid, params)
-    phase_check(cfg, points, grid, params, requests[0], outs[0])
+    requests, outs, serve_launches = phase_serve(cfg, points, grid, params)
+    grid_c = cpu(grid)
+    phase_check(cfg, points, grid, params, requests[0], outs[0], grid_c)
     if args.profile:
         phase_profile(cfg, points, grid, params, requests[1])
+    tcfg = config.train_config()
+    st, batch, bank, train_launches, seg = phase_train(tcfg, points, grid)
+    unported_chain(tcfg)
+    phase_train_check(tcfg, points, grid, grid_c, params)
+    if args.profile:
+        phase_profile_train(tcfg, st, grid, batch, bank)
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
-    kernels = [{
-        "name": "k_smallest", "route": "cuda",
-        "source": "hybridneuralrendering_tpu_torch/csrc/k_smallest.cu",
-        "replaces": "hybridneuralrendering_tpu/ops/pallas_select.py:41",
-        "launches": launches["k_smallest"],
-        "max_abs_err": sel["max_abs_err"], "ms": sel["kernel_ms"],
-        "plain_ms": sel["plain_ms"], "bound_ms": sel["bound_ms"],
-        "bound_by": sel["bound_by"], "library_ms": sel["library_ms"]}]
+    launches = {k: serve_launches[k] + train_launches[k]
+                for k in serve_launches}
+    src = "hybridneuralrendering_tpu_torch/csrc/"
+
+    def row(name, replaces, m):
+        return {"name": name, "route": "cuda", "source": src + name + ".cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+
+    kernels = [
+        row("k_smallest", "hybridneuralrendering_tpu/ops/pallas_select.py:41",
+            sel),
+        row("segment_sum", "tools/pallas_gather.py:68", seg),
+        row("adam_table", "tools/pallas_adam.py:61", adam)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""Configuration of the port: the knobs the eval render reads.
+"""Configuration of the port: the knobs the render and the training step
+read.
 
 A copy of the dataclasses of `hybridneuralrendering_tpu/config.py` that the
-render path needs (querier, points, aggregator, render, sampling), with the
-same fields and defaults, so that a preset here equals the JAX preset of the
-same name field by field (tests/test_torch_port_config.py checks it).  The
-training-only sub-configs (blur, loss, optim, probe, parallel) come with the
-training slice.
+render and training paths need (querier, points, aggregator, render, blur,
+sampling, loss, optim), with the same fields and defaults, so that a preset
+here equals the JAX preset of the same name field by field
+(tests/test_torch_port_config.py checks it).  The probe (grow/prune) and
+parallel sub-configs come with the slices that use them.
 
-`serve_config()` is the serving workload: `scannet_full` at the shapes of the
-JAX package's benchmark scene (600k synthetic points in a +-3.2 m box,
-480x640 images).
+`serve_config()` is the serving workload and `train_config()` the training
+workload: `scannet_full` at the shapes of the JAX package's benchmark scene
+(600k synthetic points in a +-3.2 m box, 480x640 images).
 """
 
 from __future__ import annotations
@@ -180,6 +181,29 @@ class RenderConfig:
 
 
 @dataclass(frozen=True)
+class BlurConfig:
+    """Blur simulation: the linear-motion kernel bank that degrades the
+    rendered patches before the loss."""
+
+    add_blur_sim: bool = False
+    blur_kernel_version: int = 3          # 1 asym, 2 sym, 3 both
+    blur_kernel_size: int = 9
+    num_move_dirs: int = 8
+    move_dists: Tuple[int, ...] = (1, 2, 4)
+    learnable: bool = False
+
+    @property
+    def num_kernels(self) -> int:
+        n_v1 = len(self.move_dists) * self.num_move_dirs
+        n_v2 = len(self.move_dists) * (self.num_move_dirs // 2)
+        if self.blur_kernel_version == 1:
+            return n_v1
+        if self.blur_kernel_version == 2:
+            return n_v2
+        return n_v1 + n_v2
+
+
+@dataclass(frozen=True)
 class SamplingConfig:
     random_sample: str = "dilated"
     random_sample_size: int = 56
@@ -201,13 +225,52 @@ class SamplingConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Loss items and weights."""
+
+    color_loss_items: Tuple[str, ...] = (
+        "ray_masked_coarse_raycolor", "ray_miss_coarse_raycolor",
+        "coarse_raycolor")
+    color_loss_weights: Tuple[float, ...] = (1.0, 0.0, 0.0)
+    zero_one_loss_items: Tuple[str, ...] = ("conf_coefficient",)
+    zero_one_loss_weights: Tuple[float, ...] = (0.0001,)
+    zero_epsilon: float = 1e-3
+    sparse_loss_weight: float = 0.0
+    use_frame_weight: bool = False
+    weight_exp: float = 1.0
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Two Adams: network parameters at `lr`, point attributes at `plr`,
+    both under the `lr_policy` schedule.  The pyramid-cache knobs are
+    carried for preset equality; the port's step runs the CNN every step."""
+
+    lr: float = 0.0005        # network params
+    plr: float = 0.002        # neural-point params
+    mvs_lr: float = 0.0005    # MVS nets (feed-forward mode only)
+    lr_policy: str = "iter_exponential_decay"
+    lr_decay_iters: int = 1_000_000
+    lr_decay_exp: float = 0.1
+    maximum_step: int = 200_000
+    beta1: float = 0.9
+    beta2: float = 0.999
+    pyramid_cache: bool = True
+    pyramid_cycle_steps: int = 400
+    pyramid_burst_steps: int = 40
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "default"
     querier: QuerierConfig = field(default_factory=QuerierConfig)
     points: PointsConfig = field(default_factory=PointsConfig)
     agg: AggregatorConfig = field(default_factory=AggregatorConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
+    blur: BlurConfig = field(default_factory=BlurConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     image_hw: Tuple[int, int] = (480, 640)
     seed: int = 0
 
@@ -216,11 +279,14 @@ class Config:
 
 
 def scannet_full(scan: str = "scene0241_01") -> Config:
-    """ScanNet full pipeline (dev_scripts/w_scannet_etf/scene241_full.sh)."""
+    """ScanNet full pipeline: hybrid + blur-kernel bank + frame weights
+    (dev_scripts/w_scannet_etf/scene241_full.sh)."""
     return Config(
         name=f"{scan}_full",
         querier=QuerierConfig(),
         agg=AggregatorConfig(),
+        blur=BlurConfig(add_blur_sim=True),
+        loss=LossConfig(use_frame_weight=True),
         sampling=SamplingConfig(eval_chunk_rays=16384),
     )
 
@@ -244,6 +310,14 @@ def serve_config() -> Config:
     )
 
 
+def train_config() -> Config:
+    """The training workload: serve_config(), whose sampling is already the
+    JAX preset's training sampling (56x56 dilated rays from 7x7 patches of
+    8x8, R = 3,136 per step), with the preset's blur bank, frame weight and
+    two Adams.  Equal field by field to the JAX bench.py:bench_config."""
+    return serve_config()
+
+
 def tiny_test() -> Config:
     """Small everything: CPU-testable shapes, float32 chains."""
     return Config(
@@ -262,6 +336,8 @@ def tiny_test() -> Config:
         sampling=SamplingConfig(
             random_sample="dilated", random_sample_size=8,
             dilation_patch_num=2, dilation_patch_size=4, edge_filter=0),
+        blur=BlurConfig(add_blur_sim=True, blur_kernel_size=5,
+                        move_dists=(1, 2)),
         image_hw=(48, 64),
     )
 
@@ -269,5 +345,6 @@ def tiny_test() -> Config:
 PRESETS = {
     "scannet_full": scannet_full,
     "serve": serve_config,
+    "train": train_config,
     "tiny": tiny_test,
 }

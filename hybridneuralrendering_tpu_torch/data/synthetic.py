@@ -64,8 +64,10 @@ def make_synthetic_scene(cfg: Config, num_points: int, seed: int = 0,
 
 def batch_arrays(cfg: Config, seed: int = 1,
                  num_rays: Optional[int] = None) -> Dict:
-    """Host arrays of one request: rays aimed into the cloud plus the
-    nearest-view stack.  num_rays defaults to the training batch size."""
+    """Host arrays of one request or training batch: rays aimed into the
+    cloud, their ground-truth colours, the frame's loss weight (1.0) and
+    the nearest-view stack.  num_rays defaults to the training batch
+    size."""
     rng = np.random.default_rng(seed)
     R = num_rays or cfg.sampling.rays_per_batch
     V = max(cfg.agg.use_nearest, 1)
@@ -85,6 +87,7 @@ def batch_arrays(cfg: Config, seed: int = 1,
         "pixel_idx": rng.integers(0, min(H, W), (R, 2)).astype(np.int32),
         "bg_color": np.ones(3, np.float32),
         "gt_image": rng.uniform(0, 1, (R, 3)).astype(np.float32),
+        "frame_weight": np.float32(1.0),
     }
     if cfg.agg.use_nearest > 0:
         batch.update({

@@ -14,3 +14,10 @@ def resolve(device="cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def no_tf32():
+    """Context in which float32 convolutions run in full float32: cuDNN
+    would otherwise use TF32 for them.  (Float32 matmuls already do:
+    torch.backends.cuda.matmul.allow_tf32 is False by default.)"""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)

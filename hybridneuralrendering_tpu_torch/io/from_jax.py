@@ -12,13 +12,14 @@ needs no JAX.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hybridneuralrendering_tpu_torch.device import resolve
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
+from hybridneuralrendering_tpu_torch.train import state as state_mod
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
@@ -58,3 +59,35 @@ def points_from_numpy(table: np.ndarray, mask: np.ndarray, feature_dim: int,
         table=torch.tensor(table, device=dev),
         mask=torch.tensor(mask, device=dev), num_live=int(mask.sum()),
         feature_dim=feature_dim, trainable=tuple(trainable))
+
+
+def train_state_from_numpy(params: Any, table: np.ndarray, mask: np.ndarray,
+                           step: int, net_adam: Tuple[Any, Any, int],
+                           pts_adam: Optional[Tuple[Any, Any, int]],
+                           feature_dim: int,
+                           trainable: Tuple[bool, ...] = (False, True, True,
+                                                          True, True),
+                           device="cuda") -> state_mod.TrainState:
+    """The JAX TrainState as the port's.
+
+    params: the network parameter tree; table, mask: the NeuralPoints'
+    stacked table and mask; step: TrainState.step; net_adam, pts_adam:
+    (mu, nu, count) of the two optax ScaleByAdamState (opt_state[0]), the
+    point one with mu and nu as the [N, W] table (its {"table": ...} leaf),
+    or None when no point attribute trains."""
+    points = points_from_numpy(table, mask, feature_dim, trainable, device)
+    mu, nu, count = net_adam
+    opt_net = state_mod.AdamState(params_from_numpy(mu, device),
+                                  params_from_numpy(nu, device), int(count))
+    opt_pts = None
+    if pts_adam is not None:
+        pmu, pnu, pcount = pts_adam
+        dev = points.table.device
+        opt_pts = state_mod.AdamState(
+            torch.tensor(np.asarray(pmu, np.float32), device=dev),
+            torch.tensor(np.asarray(pnu, np.float32), device=dev),
+            int(pcount))
+    return state_mod.TrainState(step=int(step),
+                                params=params_from_numpy(params, device),
+                                points=points, opt_net=opt_net,
+                                opt_pts=opt_pts)

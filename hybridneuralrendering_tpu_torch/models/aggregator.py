@@ -4,8 +4,9 @@
 Every MLP runs over the full [R, SR, K] neighbour block with `pnt_mask`
 zeroing the empty slots.  Under shading_dtype=bfloat16 the per-neighbour
 chain casts its inputs and weights once at entry and the K-sum accumulates
-in float32, as in the JAX package.  The train-time feature drop, the
-rematerialised chain and the chunked chain come with training.
+in float32, as in the JAX package.  In training (`train=True`) the rays
+of drop_ray_mask lose their image feature; the rematerialised chain, the
+chunked chain and the fused leaky VJP are not ported and raise.
 """
 
 from __future__ import annotations
@@ -78,7 +79,10 @@ def viewdir_channels(cfg: AggregatorConfig) -> int:
     return 2 * cfg.num_viewdir_freqs * 3 if cfg.num_viewdir_freqs > 0 else 3
 
 
-def _check_supported(cfg: AggregatorConfig) -> None:
+def _check_supported(cfg: AggregatorConfig, train: bool = False) -> None:
+    """Raise for knobs the port does not implement.  The remat, chunk and
+    fused-VJP knobs change only the backward pass (and peak memory), so
+    they raise in training and are ignored by the eval forward."""
     unported = {
         "agg_distance_kernel in (sh_intrp, gau_intrp)":
             cfg.agg_distance_kernel in ("sh_intrp", "gau_intrp"),
@@ -86,6 +90,9 @@ def _check_supported(cfg: AggregatorConfig) -> None:
         "compute_dtype != float32": cfg.compute_dtype != "float32",
         "separate_color_decoder": cfg.separate_color_decoder,
         "learnable_blur_kernel": cfg.learnable_blur_kernel,
+        "remat_chain in training": train and cfg.remat_chain,
+        "chain_chunks > 1 in training": train and cfg.chain_chunks > 1,
+        "fused_leaky_vjp in training": train and cfg.fused_leaky_vjp,
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -144,6 +151,27 @@ def init(gen: torch.Generator, cfg: AggregatorConfig, device="cpu") -> Dict:
         [final_in, final_in, 3] if cfg.large_color_final_block
         else [final_in, 3])
     return params
+
+
+def drop_ray_mask(cfg: AggregatorConfig, num_rays: int, patch_num: int,
+                  patch_size: int) -> np.ndarray:
+    """Rays whose image features are dropped in training: with the patch
+    layout [patch_num*patch_size]^2 row-major, the first
+    floor(patch_num^2 * drop_ratio) patches.  A static bool [num_rays]."""
+    if cfg.drop_ratio <= 0:
+        return np.zeros(num_rays, bool)
+    side = patch_num * patch_size
+    if cfg.drop_patch and side * side == num_rays:
+        flag = np.zeros((side, side), bool)
+        n_drop = int(patch_num * patch_num * cfg.drop_ratio)
+        row, col = n_drop // patch_num, n_drop % patch_num
+        flag[: row * patch_size, :] = True
+        flag[row * patch_size: (row + 1) * patch_size,
+             : col * patch_size] = True
+        return flag.reshape(-1)
+    flag = np.zeros(num_rays, bool)
+    flag[: int(num_rays * cfg.drop_ratio)] = True
+    return flag
 
 
 class AggOutput(NamedTuple):
@@ -218,12 +246,15 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
           sample_loc_i_n: Optional[torch.Tensor] = None,
           delta_viewdir_n: Optional[torch.Tensor] = None,
           frame_weight_n: Optional[torch.Tensor] = None,
-          view_mask: Optional[torch.Tensor] = None) -> AggOutput:
-    """Shade all [R, SR] samples from their K gathered neighbours (eval).
+          view_mask: Optional[torch.Tensor] = None,
+          drop_mask: Optional[torch.Tensor] = None,
+          train: bool = False) -> AggOutput:
+    """Shade all [R, SR] samples from their K gathered neighbours.
 
     img_feat_n [V, H, W, 45] pyramid features of the nearest views;
-    sample_loc_i_n [V, R, SR, 2] reprojected pixel positions."""
-    _check_supported(cfg)
+    sample_loc_i_n [V, R, SR, 2] reprojected pixel positions; drop_mask [R]
+    bool, rays whose image features are dropped (read only when `train`)."""
+    _check_supported(cfg, train)
     f32 = sampled_xyz.dtype
     ray_valid = pnt_mask.any(dim=-1)
     dists = build_dists(cfg, sampled_xyz, sampled_xyz_pers, sample_loc,
@@ -276,7 +307,8 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
     with record_function("agg.fusion"):
         merged = fusion.image_fusion(params, cfg, color_feature, img_feat_n,
                                      sample_loc_i_n, delta_viewdir_n,
-                                     frame_weight_n, view_mask)
+                                     frame_weight_n, view_mask,
+                                     drop_mask if train else None)
     color_feature_mix = fusion.mixup(params, cfg, color_feature, merged)
     rgb = raw2color(mlp.mlp_apply(params["color_final"], color_feature_mix,
                                   cfg.act_type), cfg.act_super)

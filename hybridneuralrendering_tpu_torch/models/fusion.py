@@ -3,7 +3,10 @@
 
 Per-view pyramid features are read at each shading point's reprojection,
 merged across views by a learned weight MLP, and mixed with the 3D colour
-feature.  The eval path: no feature drop.
+feature.  In training, the rays of `drop_mask` lose their merged image
+feature after the fusion (the JAX package always drops after fusion, which
+is `random_position=1`; it does not read the knob, and neither does the
+port).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from hybridneuralrendering_tpu_torch.config import AggregatorConfig
 from hybridneuralrendering_tpu_torch.models import mlp
+from hybridneuralrendering_tpu_torch.models import neural_points as npts
 
 
 def image_fusion(params: Dict, cfg: AggregatorConfig,
@@ -22,10 +26,12 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
                  sample_loc_i_n: Optional[torch.Tensor],
                  delta_viewdir_n: Optional[torch.Tensor],
                  frame_weight_n: Optional[torch.Tensor] = None,
-                 view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 view_mask: Optional[torch.Tensor] = None,
+                 drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Merged per-sample image feature [R, SR, aux_c], zeros when the image
     branch is off.  img_feat_n [V, H, W, C]; sample_loc_i_n [V, R, SR, 2]
-    pixel positions; delta_viewdir_n [V, R, SR, 3]."""
+    pixel positions; delta_viewdir_n [V, R, SR, 3]; drop_mask [R] bool,
+    rays whose merged feature is zeroed (training only)."""
     f32 = color_feature.dtype
     aux_c = cfg.aux_feature_channels
     if not (cfg.use_nearest > 0 and img_feat_n is not None):
@@ -39,10 +45,12 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
     valid = (px >= 0) & (px < W) & (py >= 0) & (py < H)
     if view_mask is not None:
         valid = valid & (view_mask > 0)[:, None, None]
-    pxc, pyc = px.clamp(0, W - 1).long(), py.clamp(0, H - 1).long()
+    # a flat row gather; off-image samples read row 0, are zeroed below,
+    # and their (zero) cotangent goes to row 0 (neural_points.gather_rows)
     vidx = torch.arange(V, device=px.device)[:, None, None]
-    fid = (vidx * H + pyc) * W + pxc
-    img_feat = img_feat_n.reshape(V * H * W, C)[fid][..., :aux_c]
+    fid = torch.where(valid, (vidx * H + py) * W + px, -1)
+    img_feat = npts.gather_rows(img_feat_n.reshape(V * H * W, C),
+                                fid)[..., :aux_c]
     img_feat = img_feat * valid[..., None].to(f32)
 
     parts = [img_feat, color_feature[None]]
@@ -55,8 +63,11 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
     fusion_w = fusion_w * valid.to(f32)                          # [V, R, SR]
     if cfg.downweight_blurry_feats and frame_weight_n is not None:
         fusion_w = fusion_w * frame_weight_n[:, None, None]
-    return torch.sum(img_feat * fusion_w[..., None], dim=0) / (
+    merged = torch.sum(img_feat * fusion_w[..., None], dim=0) / (
         torch.sum(fusion_w, dim=0)[..., None] + 1e-6)
+    if drop_mask is not None:
+        merged = merged * (1.0 - drop_mask[:, None, None].to(f32))
+    return merged
 
 
 def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,

@@ -2,8 +2,10 @@
 
 A fixed-capacity cloud: all five per-point attributes live stacked in one
 table [N, table_width] (xyz | embedding | conf | color | dirs | zero pad),
-live points marked by `mask`.  The eval render gathers rows of the table for
-the [R, SR, K] neighbour ids.
+live points marked by `mask`.  The render gathers rows of the table for the
+[R, SR, K] neighbour ids; under autograd the gather's backward sorts the
+cotangent rows by id and reduces them with the segment-sum kernel
+(ops/segment_sum.py).
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from hybridneuralrendering_tpu_torch.config import PointsConfig
 from hybridneuralrendering_tpu_torch.device import resolve
+from hybridneuralrendering_tpu_torch.ops.segment_sum import segment_sum
 
 ATTR_ORDER = ("xyz", "embedding", "conf", "color", "dirs")
 
@@ -139,15 +143,72 @@ class SampledPoints(NamedTuple):
     dirs: torch.Tensor        # [R, SR, K, 3]
 
 
+def segment_ends(si: torch.Tensor, n: int) -> torch.Tensor:
+    """Inclusive segment ends of sorted ids si [M]: end_pos[p] is the last
+    position j with si[j] <= p, -1 where there is none ([n] int32).  The
+    JAX package scatters each id's last position and takes a running max;
+    one binary search per id gives the same array."""
+    ids = torch.arange(n, dtype=si.dtype, device=si.device)
+    return torch.searchsorted(si, ids, right=True, out_int32=True) - 1
+
+
+class _GatherRows(torch.autograd.Function):
+    """table [N, C] -> table[max(idx, 0)] with a sort-based backward (JAX:
+    neural_points._gather_rows, which the caller hands clamped ids).
+
+    Backward: one stable sort of the flat ids gives the sorted ids and the
+    permutation; the cotangent rows are permuted into id order, the
+    inclusive segment ends are built (segment_ends), and the segment-sum
+    kernel reduces each id's rows.  No scatter-add: deterministic, and
+    absent ids get exact zeros.  A bf16 cotangent is summed in float32 and
+    rounded once at the end.
+
+    Negative ids (empty slots) read row 0, and their cotangent rows are
+    summed onto row 0 by one column sum: they sort after every real id, so
+    the kernel's segments hold only real ids.  In a training step two
+    thirds of the neighbour slots are empty, and as one segment they would
+    set the kernel's time."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table[torch.clamp(idx, min=0)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n = ctx.n
+        with record_function("gather.bwd"):
+            flat_i = idx.reshape(-1)
+            flat_g = g.reshape(-1, g.shape[-1]).to(torch.float32)
+            empty = flat_i < 0
+            si, order = torch.sort(
+                torch.where(empty, n, flat_i).to(torch.int32), stable=True)
+            grad = segment_sum(flat_g[order], segment_ends(si, n), n)
+            grad[0] += torch.where(empty[:, None], flat_g, 0.0).sum(dim=0)
+        return grad.to(g.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for ids >= 0, row 0 for ids < 0; differentiable in the
+    table through the segment-sum kernel."""
+    return _GatherRows.apply(table, idx)
+
+
 def gather(points: NeuralPoints, sample_pidx: torch.Tensor) -> SampledPoints:
     """Rows of the point table for neighbour ids [R, SR, K]; empty slots
     (-1) read row 0 and are masked downstream by pnt_mask.  One row gather
-    of the stacked table, then a split."""
-    idx = torch.clamp(sample_pidx, min=0).long()
-    out = points.table[idx]
-    xyz, emb, conf, color, dirs = torch.split(
+    of the stacked table (gather_rows), then a split.  Frozen attributes
+    are detached after the gather, so their lanes of the table gradient are
+    exact zeros."""
+    out = gather_rows(points.table, sample_pidx.long())
+    parts = torch.split(
         out, list(attr_widths(points.feature_dim)) + [
             out.shape[-1] - sum(attr_widths(points.feature_dim))],
         dim=-1)[:5]
+    xyz, emb, conf, color, dirs = [
+        p if trainable else p.detach()
+        for p, trainable in zip(parts, points.trainable)]
     return SampledPoints(xyz=xyz, embedding=emb, conf=conf[..., 0],
                          color=color, dirs=dirs)

@@ -1,4 +1,4 @@
-"""End-to-end hybrid point-based renderer, eval path
+"""End-to-end hybrid point-based renderer
 (JAX: hybridneuralrendering_tpu/models/renderer.py).
 
 query voxel grid -> gather point attributes -> reproject shading points into
@@ -50,8 +50,11 @@ def compute_image_features(params: Dict, cfg: Config,
 
 def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
            batch: Dict, cfg: Config,
-           img_feat_n: Optional[torch.Tensor] = None) -> Dict:
-    """Deterministic render of one batch of rays (no jitter, no drop).
+           img_feat_n: Optional[torch.Tensor] = None, train: bool = False,
+           noise: Optional[torch.Tensor] = None) -> Dict:
+    """Render one batch of rays.  Deterministic unless `train`: then
+    `noise` [R, z_depth_dim] in [0, 1) jitters the candidate samples and
+    the rays of aggregator.drop_ray_mask lose their image features.
 
     batch: 'campos' [3], 'camrotc2w' [3,3], 'raydir' [R,3], 'bg_color' [3];
     the hybrid branch adds 'images_nearest' [V,H,W,3], 'c2w_nearest'
@@ -67,7 +70,8 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
 
     with record_function("render.query"):
         qres = Q.query_points(grid, points.xyz, campos, raydir, qcfg,
-                              rcfg.near_plane, rcfg.far_plane)
+                              rcfg.near_plane, rcfg.far_plane, noise=noise,
+                              train=train)
     with record_function("render.gather"):
         sampled = npts.gather(points, qres.sample_pidx)
     with record_function("render.project"):
@@ -91,6 +95,12 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         img_feat_n = compute_image_features(params, cfg,
                                             batch["images_nearest"])
 
+    drop_mask = None
+    if train and acfg.drop_ratio > 0:
+        drop_mask = torch.as_tensor(agg.drop_ray_mask(
+            acfg, R, cfg.sampling.dilation_patch_num,
+            cfg.sampling.dilation_patch_size), device=raydir.device)
+
     with record_function("render.aggregate"):
         out = agg.apply(
             params["aggregator"], acfg,
@@ -102,7 +112,8 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             sample_ray_dirs=sample_ray_dirs, vsize=qcfg.query_vsize,
             img_feat_n=img_feat_n, sample_loc_i_n=sample_loc_i_n,
             delta_viewdir_n=delta_vd_n, frame_weight_n=frame_w_n,
-            view_mask=batch.get("view_mask"))
+            view_mask=batch.get("view_mask"), drop_mask=drop_mask,
+            train=train)
 
     with record_function("render.march"):
         ray_dist = march.ray_dist_from_depth(
@@ -123,8 +134,9 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         "coarse_is_background": bg_trans,          # [R, 1]
         "ray_mask": qres.ray_mask,                 # [R]
         "ray_valid": out.ray_valid,                # [R, SR]
-        "weight": out.weight,
-        "blend_weight": blend_weight,
+        # no gradient flows through these two, as in the JAX package
+        "weight": out.weight.detach(),
+        "blend_weight": blend_weight.detach(),
         "conf_coefficient": out.conf_coefficient,
         "queried_shading": ~out.ray_valid.any(dim=-1, keepdim=True),
     }

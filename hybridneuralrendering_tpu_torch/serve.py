@@ -20,13 +20,10 @@ from typing import Dict
 import torch
 
 from hybridneuralrendering_tpu_torch.config import Config
+from hybridneuralrendering_tpu_torch.device import no_tf32
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.models import renderer
 from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
-
-def _no_tf32():
-    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-
 
 # per-ray outputs of renderer.render that a request returns
 RAY_OUTPUTS = ("coarse_raycolor", "coarse_is_background", "ray_mask",
@@ -37,7 +34,7 @@ RAY_OUTPUTS = ("coarse_raycolor", "coarse_is_background", "ray_mask",
 def eval_step(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
               batch: Dict, cfg: Config) -> Dict:
     """Deterministic render of one chunk (no jitter, no drop, no blur)."""
-    with _no_tf32():
+    with no_tf32():
         return renderer.render(params, points, grid, batch, cfg)
 
 
@@ -49,7 +46,7 @@ def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     raydir = request["raydir"]
     chunk = cfg.sampling.eval_rays
     outs = {k: [] for k in RAY_OUTPUTS}
-    with _no_tf32():
+    with no_tf32():
         img_feat_n = None
         if cfg.agg.use_nearest > 0 and "images_nearest" in request:
             img_feat_n = renderer.compute_image_features(

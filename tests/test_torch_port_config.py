@@ -66,3 +66,33 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 20
+
+
+TRAIN_SUBCONFIGS = ("blur", "loss", "optim")
+
+
+@pytest.mark.parametrize("preset", ["scannet_full", "tiny_test"])
+@pytest.mark.parametrize("sub", TRAIN_SUBCONFIGS)
+def test_training_subconfigs_equal(preset, sub):
+    jc, tc = getattr(JC, preset)(), getattr(TC, preset)()
+    assert _fields(getattr(tc, sub)) == _fields(getattr(jc, sub))
+
+
+def test_blur_num_kernels_equal():
+    for preset in ("scannet_full", "tiny_test"):
+        jc, tc = getattr(JC, preset)(), getattr(TC, preset)()
+        assert tc.blur.num_kernels == jc.blur.num_kernels
+
+
+def test_train_config_is_the_bench_training_shape(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("BENCH_"):
+            monkeypatch.delenv(k)
+    jc, tc = bench.bench_config(), TC.train_config()
+    for sub in SUBCONFIGS + TRAIN_SUBCONFIGS:
+        assert _fields(getattr(tc, sub)) == _fields(getattr(jc, sub)), sub
+    assert tc.image_hw == jc.image_hw == (480, 640)
+    assert tc.sampling.rays_per_batch == 3136
+    assert tc.blur.add_blur_sim and tc.loss.use_frame_weight
+    assert (tc.querier.z_depth_dim, tc.querier.SR, tc.querier.K) == \
+        (400, 24, 8)

@@ -9,21 +9,29 @@ Phases, each printing one JSON progress line:
                  the main path's shapes, with the tolerance it holds, times,
                  bound and the time of one PyTorch library call (and the
                  library cumsum as a yardstick for the unported scan kernel);
+                 the shading chain's forward at a serving chunk's and a
+                 training step's rows and its two backward kernels at a
+                 step's, with a planted fault, a bitwise repeat and the old
+                 per-layer bf16 chain as a control the comparisons reject
+                 and as yardstick;
   4. scene       the 600k-point serve_config scene, grid and random
                  full-width parameters, built on the card;
   5. serve       4 requests of 16,384 rays through serve.render_rays, with
-                 every kernel's launch count read over exactly that run;
+                 every kernel's launch count read over exactly that run (one
+                 K-min and one chain forward per request);
   6. check       the first rays of request 0 rendered again on the CPU
                  through the plain versions, compared with the card's result;
   7. train       train_config() on the same scene: 1 warm-up and 5 timed
                  train_step calls of 3,136 rays (blur bank, frame weight, the
                  pyramid CNN inside the step), every kernel's launch count
-                 read over exactly the timed steps; then the two segment
+                 read over exactly the timed steps (per step one K-min, two
+                 segment sums, one table Adam, one chain forward and one of
+                 each chain backward kernel); then the two segment
                  sums of one more step, captured and held against the plain
                  version;
   8. train_check one step of 256 rays from one state on the card and on the
                  CPU (plain versions), compared; the same on the card with
-                 each of four planted kernel faults must be rejected.
+                 each of six planted kernel faults must be rejected.
 `--profile` adds a torch.profiler pass over one more request and one more
 training step and prints the kernels that took the most device time.
 
@@ -100,13 +108,16 @@ def phase_device():
 
 
 def kernel_libs():
-    from hybridneuralrendering_tpu_torch.ops import adam, segment_sum, select
+    from hybridneuralrendering_tpu_torch.ops import (adam, segment_sum,
+                                                     select, shading_chain)
     return {**select.KERNEL_LIBS, **segment_sum.KERNEL_LIBS,
-            **adam.KERNEL_LIBS}
+            **adam.KERNEL_LIBS, **shading_chain.KERNEL_LIBS}
 
 
 def launch_counters():
-    """name -> the wrapper that counts the kernel's launches."""
+    """name -> the wrapper that counts the kernel's launches in its
+    `launches` (the shading chain's wrappers count in one module dict,
+    shading_chain.LAUNCHES)."""
     from hybridneuralrendering_tpu_torch.ops import adam, segment_sum, select
     return {"k_smallest": select.k_smallest,
             "segment_sum": segment_sum.segment_sum,
@@ -114,12 +125,17 @@ def launch_counters():
 
 
 def reset_launches():
+    from hybridneuralrendering_tpu_torch.ops import shading_chain
     for fn in launch_counters().values():
         fn.launches = 0
+    for k in shading_chain.LAUNCHES:
+        shading_chain.LAUNCHES[k] = 0
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    from hybridneuralrendering_tpu_torch.ops import shading_chain
+    return {**{k: fn.launches for k, fn in launch_counters().items()},
+            **shading_chain.LAUNCHES}
 
 
 def phase_build():
@@ -187,9 +203,9 @@ def phase_kernels(cfg):
     return rows[main_shape]
 
 
-def _bound(bytes_, ops):
+def _bound(bytes_, ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -379,8 +395,10 @@ def phase_serve(cfg, points, grid, params):
     hit = float(torch.cat([o["ray_mask"] for o in outs]).float().mean())
     if hit <= 0:
         raise AssertionError("no ray hit the scene")
-    if launches != {"k_smallest": chunks, "segment_sum": 0,
-                    "adam_table": 0}:
+    # one K-min and one chain forward per chunk, nothing of training
+    want = dict.fromkeys(launches, 0)
+    want.update(k_smallest=chunks, shading_chain_fwd=chunks)
+    if launches != want:
         raise AssertionError(f"serving launched {launches} for {chunks} "
                              "chunks")
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
@@ -441,8 +459,8 @@ def phase_check(cfg, points, grid, params, request, out, grid_c):
 def profile(label, fn):
     """fn() under torch.profiler: device time by kernel and by the
     record_function ranges of the port (render.*, agg.*, train.*,
-    gather.*, adam.*), and the share of the wall time the device was
-    busy."""
+    gather.*, adam.*, chain.*), and the share of the wall time the device
+    was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -454,7 +472,7 @@ def profile(label, fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    stage = ("render.", "agg.", "train.", "gather.", "adam.")
+    stage = ("render.", "agg.", "train.", "gather.", "adam.", "chain.")
     kernels = sorted(((e.self_device_time_total, e.key, e.count)
                       for e in events if e.device_type == DeviceType.CUDA
                       and not e.key.startswith(stage)), reverse=True)
@@ -480,48 +498,256 @@ def phase_profile(cfg, points, grid, params, request):
                                                cfg))
 
 
-def unported_chain(cfg):
-    """A yardstick for tools/pallas_shading.py:fused_feat_alpha, which is
-    not ported: the port's per-neighbour chain (aggregator._shading_chain,
-    bf16) forward, and forward + backward, at the training step's
-    3,136 * 24 * 8 rows with random inputs, and the bound of that work
-    (matmul operations at the bf16 tensor-core peak: the backward does
-    twice the forward's)."""
+def old_chain(p, cfg, emb, dflat, extras):
+    """The port's per-neighbour chain before the fused kernels, kept here as
+    a yardstick and called by nothing of the port: one cast of inputs and
+    weights to bf16 at entry, then bf16 end to end through torch's ops
+    (cuBLAS products, elementwise passes and concats), as the JAX
+    package's shipped chain.  Returns (feat, alpha_raw)."""
     import torch
-    from hybridneuralrendering_tpu_torch.models import aggregator as agg
+    from hybridneuralrendering_tpu_torch.core.encoding import \
+        positional_encoding
+    from hybridneuralrendering_tpu_torch.models import mlp
+    ft = torch.cat([emb, positional_encoding(emb, cfg.num_feat_freqs),
+                    positional_encoding(dflat, abs(cfg.dist_xyz_freq))], -1)
+    ft = ft.to(torch.bfloat16)
+    extras = [e.to(torch.bfloat16) for e in extras]
+    p = {k: [{n: t.to(torch.bfloat16) for n, t in layer.items()}
+             for layer in v] for k, v in p.items()}
+    ft = mlp.mlp_apply(p["block1"], ft, cfg.act_type, final_act=True)
+    ft = mlp.mlp_apply(p["block3"], torch.cat([ft] + extras, -1),
+                       cfg.act_type, final_act=True)
+    return ft, ft @ p["alpha"][0]["w"][:, 0] + p["alpha"][0]["b"][0]
+
+
+def _chain_inputs(cfg, n, gen):
+    """Neighbour rows as the aggregator gives them: embeddings of the
+    table's scale, offsets within the query radius (a third of the slots
+    empty, zero), colours in [0, 1], unit-vector deltas and their dot."""
+    import torch
+    q = cfg.querier
+    radius = q.radius_limit_scale * max(q.vsize[0], q.vsize[1])
+    emb = 0.1 * torch.randn(n, cfg.agg.point_features_dim, generator=gen,
+                            device=DEVICE)
+    dists = (torch.rand(n, cfg.agg.dist_dim, generator=gen, device=DEVICE)
+             * 2 - 1) * radius
+    dists[torch.rand(n, generator=gen, device=DEVICE) < 1 / 3] = 0.0
+    unit = lambda: torch.nn.functional.normalize(                # noqa: E731
+        torch.randn(n, 3, generator=gen, device=DEVICE), dim=1)
+    pdir, vdir = unit(), unit()
+    color = torch.rand(n, 3, generator=gen, device=DEVICE)
+    extras = [color, pdir - vdir, (pdir * vdir).sum(1, keepdim=True)]
+    return emb, dists, extras
+
+
+def _chain_ops(layout, rows):
+    """Multiply-adds of the chain's products at its real widths, x2."""
+    return 2 * rows * sum(s.kin * s.nout for s in layout.layers)
+
+
+def _bf16_bound(bytes_, ops):
+    return _bound(bytes_, ops, BF16_OPS_PER_S)
+
+
+def _old_chain_grads(p, cfg, emb, dists, extras, dfeat, dalpha):
+    """(feat, alpha) of old_chain and the gradients of
+    sum(feat * dfeat) + sum(alpha * dalpha) in its inputs and parameters,
+    named as phase_kernels_chain names them."""
+    import torch
+    leaves = {f"{k}/{i}/{n_}": t.detach().clone().requires_grad_(True)
+              for k, v in p.items() for i, layer in enumerate(v)
+              for n_, t in layer.items()}
+    p = {k: [{n_: leaves[f"{k}/{i}/{n_}"] for n_ in layer}
+             for i, layer in enumerate(v)] for k, v in p.items()}
+    x = {"d_emb": emb.clone().requires_grad_(True),
+         "d_dists": dists.clone().requires_grad_(True)}
+    extras = [e.clone().requires_grad_(True) for e in extras]
+    feat, alpha = old_chain(p, cfg, x["d_emb"], x["d_dists"], extras)
+    loss = ((feat.float() * dfeat).sum()
+            + (alpha.float() * dalpha.view_as(alpha)).sum())
+    names = list(x) + ["d_extra"] + list(leaves)
+    g = torch.autograd.grad(loss, list(x.values()) + extras
+                            + list(leaves.values()))
+    g = list(g[:2]) + [torch.cat(g[2:2 + len(extras)], 1)] + \
+        list(g[2 + len(extras):])
+    return dict(zip(names, g))
+
+
+def phase_kernels_chain(cfg):
+    """The fused shading chain's kernels against their plain versions on the
+    card (ops/shading_chain.tolerance, a relative L2 error per output) with
+    random full-width weights: the forward at a serving chunk's rows
+    (16,384 rays * SR * K) and at a training step's (3,136 * SR * K), the
+    backward kernels at the training step's rows, two backward launches bit
+    for bit.  Controls the comparisons must reject: a planted fault
+    (block3's extra columns read one column off) in the forward, and
+    old_chain, the per-layer chain the kernels replace, which rounds more
+    (bf16 end to end), in the forward and the backward.  old_chain is also
+    the yardstick, timed at the same rows."""
+    import torch
     from hybridneuralrendering_tpu_torch.models import renderer
+    from hybridneuralrendering_tpu_torch.ops import shading_chain as SC
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     a = cfg.agg
-    shape = (cfg.sampling.rays_per_batch, cfg.querier.SR, cfg.querier.K)
-    rows = shape[0] * shape[1] * shape[2]
-
-    def rand(*tail, scale=0.1):
-        x = torch.randn(*shape, *tail, generator=gen, device=DEVICE) * scale
-        return x.requires_grad_(True)
-
+    dt_name = a.shading_dtype
+    dt = SC.COMPUTE_DTYPES[dt_name]
     params = renderer.init_params(cfg, seed=2, device=DEVICE)["aggregator"]
-    chain = {k: [{n: t.requires_grad_(True) for n, t in layer.items()}
-                 for layer in params[k]]
-             for k in ("block1", "block2", "block3", "alpha") if k in params}
-    emb, dists = rand(a.point_features_dim), rand(a.dist_dim, scale=0.01)
-    extras = [rand(3), rand(3), rand(1)]
-    mask_w = torch.rand(*shape, generator=gen, device=DEVICE)
+    chain = {k: params[k] for k in ("block1", "block2", "block3", "alpha")
+             if k in params}
+    kpr = cfg.querier.SR * cfg.querier.K
+    serve_rows = RAYS_PER_REQUEST * kpr
+    train_rows = cfg.sampling.rays_per_batch * kpr
+    rows = {}
 
-    def fwd():
-        return agg._shading_chain(chain, a, emb, dists, extras, mask_w)
+    def over(errs):
+        """The largest reading over its output's limit (> 1 rejects)."""
+        return max(e / SC.tolerance(dt_name, k if k in ("feat", "alpha")
+                                    else "grad") for k, e in errs.items())
 
-    def fwd_bwd():
-        alpha, feat = fwd()
-        (alpha.sum() + feat.sum()).backward()
+    def forward_row(n, label):
+        emb, dists, extras = _chain_inputs(cfg, n, gen)
+        extra = torch.cat(extras, 1)
+        layout = SC.chain_layout(chain, a, emb.shape[1], dists.shape[1],
+                                 extra.shape[1])
+        w, b = SC.pack_chain(chain, layout, dt)
+        feat, alpha = SC.chain_forward(layout, w, b, emb, dists, extra)
+        want_f, want_a = SC.chain_plain(emb, dists, extra, chain, a, dt_name)
+        planted, _ = SC.chain_forward(layout, w, b, emb, dists,
+                                      extra.roll(1, dims=1).contiguous())
+        old_f, old_a = old_chain(chain, a, emb, dists, extras)
+        torch.cuda.synchronize()
+        errs = {"feat": SC.rel_l2(feat, want_f),
+                "alpha": SC.rel_l2(alpha, want_a)}
+        control = {"feat": SC.rel_l2(old_f.float(), want_f),
+                   "alpha": SC.rel_l2(old_a.float().view_as(want_a), want_a)}
+        del old_f, old_a
+        fault = {"feat": SC.rel_l2(planted, want_f)}
+        if over(errs) > 1:
+            raise AssertionError(f"chain forward kernel != plain ({label}): "
+                                 f"{errs}")
+        if over(fault) <= 1 or over(control) <= 1:
+            raise AssertionError(f"chain forward check passed a control "
+                                 f"({label}): fault {fault}, old chain "
+                                 f"{control}")
+        iters = 5 if n > 10 ** 6 else 10
+        bytes_ = (n * (emb.shape[1] + dists.shape[1] + extra.shape[1]) * 4
+                  + w.numel() * w.element_size() + b.numel() * 4
+                  + (feat.numel() + alpha.numel()) * 4)
+        bound, by = _bf16_bound(bytes_, _chain_ops(layout, n))
+        row = dict(
+            shape=[n, layout.c1], rows=label,
+            tolerance={k: SC.tolerance(dt_name, k) for k in errs},
+            rel_l2=errs, max_abs_err=float(max((feat - want_f).abs().max(),
+                                               (alpha - want_a).abs().max())),
+            margin=1 / over(errs),
+            planted_fault_rel_l2=fault["feat"],
+            planted_fault_margin=over(fault),
+            old_chain_rel_l2=control, old_chain_margin=over(control),
+            kernel_ms=cuda_ms(lambda: SC.chain_forward(
+                layout, w, b, emb, dists, extra), iters),
+            plain_ms=cuda_ms(lambda: SC.chain_plain(emb, dists, extra, chain,
+                                                    a, dt_name), iters),
+            yardstick_old_chain_ms=cuda_ms(lambda: old_chain(
+                chain, a, emb, dists, extras), iters),
+            library_ms=None, bound_ms=bound, bound_by=by)
+        log("kernels", kernel="shading_chain_fwd", **row)
+        return row, (emb, dists, extras, extra, layout, w, b)
 
-    macs = sum(layer["w"].shape[0] * layer["w"].shape[1]
-               for v in chain.values() for layer in v)
-    ops = 2 * rows * macs
-    log("unported", kernel="fused_feat_alpha", rows=rows,
-        plain_fwd_ms=cuda_ms(fwd, 5), plain_fwd_bwd_ms=cuda_ms(fwd_bwd, 5),
-        bound_fwd_ms=ops / BF16_OPS_PER_S * 1e3,
-        bound_fwd_bwd_ms=3 * ops / BF16_OPS_PER_S * 1e3,
-        bound_by="operations")
+    rows["fwd"], _ = forward_row(serve_rows, "serve chunk")
+    rows["fwd_train"], (emb, dists, extras, extra, layout, w, b) = \
+        forward_row(train_rows, "training step")
+
+    n = train_rows
+    F = layout.layers[layout.na + layout.nb - 1].nout
+    dfeat = torch.randn(n, F, generator=gen, device=DEVICE) * 1e-3
+    dalpha = torch.randn(n, 1, generator=gen, device=DEVICE) * 1e-3
+    args = (layout, w, b, emb, dists, extra, dfeat, dalpha)
+    d_emb, d_dists, d_extra, ascr, gscr, dbpart = SC.chain_backward(*args)
+    packed = SC.chain_dw(layout, ascr, gscr, dbpart)
+    again = SC.backward_on_card(*args)
+    want = SC.chain_backward_plain(emb, dists, extra, chain, a, dt_name,
+                                   dfeat, dalpha)
+    old = _old_chain_grads(chain, a, emb, dists, extras, dfeat, dalpha)
+    torch.cuda.synchronize()
+    got = {"d_emb": d_emb, "d_dists": d_dists, "d_extra": d_extra}
+    ref = {"d_emb": want[0], "d_dists": want[1], "d_extra": want[2]}
+    for s_, g_, r_ in zip(layout.layers, SC.unpack_chain(packed, layout),
+                          SC._layer_list(want[3])):
+        name = f"{s_.key[0]}/{s_.key[1]}"
+        got[name + "/w"], ref[name + "/w"] = g_["w"], r_["w"]
+        got[name + "/b"], ref[name + "/b"] = g_["b"], r_["b"]
+    errs = {k: SC.rel_l2(got[k], ref[k]) for k in got}
+    control = {k: SC.rel_l2(old[k], ref[k]) for k in got}
+    del old
+    tol = SC.tolerance(dt_name, "grad")
+    if over(errs) > 1:
+        raise AssertionError(f"chain backward kernels != plain: {errs} > "
+                             f"{tol}")
+    if over(control) <= 1:
+        raise AssertionError(f"chain backward check passed the old chain: "
+                             f"{control}")
+    repeat = all(torch.equal(x, y) for x, y in zip(
+        (d_emb, d_dists, d_extra, packed), again))
+    if not repeat:
+        raise AssertionError("chain backward kernels are not bit-repeatable")
+    max_err = max(float((got[k] - ref[k]).abs().max()) for k in got)
+    flops = _chain_ops(layout, n)
+    raw_in = n * (emb.shape[1] + dists.shape[1] + extra.shape[1]) * 4
+    wbytes = w.numel() * w.element_size() + b.numel() * 4
+    scratch = (ascr.numel() + gscr.numel()) * ascr.element_size()
+    old_p = {k: [{n_: t.detach().clone().requires_grad_(True)
+                  for n_, t in layer.items()} for layer in v]
+             for k, v in chain.items()}
+    emb_g, dists_g = emb.clone().requires_grad_(True), \
+        dists.clone().requires_grad_(True)
+    extras_g = [e.clone().requires_grad_(True) for e in extras]
+
+    def old_fwd_bwd():
+        feat, alpha = old_chain(old_p, a, emb_g, dists_g, extras_g)
+        ((feat.float() * dfeat).sum()
+         + (alpha.float() * dalpha.view_as(alpha)).sum()).backward()
+
+    def fused_fwd_bwd():
+        SC.chain_forward(layout, w, b, emb, dists, extra)
+        SC.backward_on_card(*args)
+
+    def dw_plain():
+        return ([ascr[:, s.aoff:s.aoff + s.kp].float().t()
+                 @ gscr[:, s.goff:s.goff + s.np].float()
+                 for s in layout.layers], dbpart.sum(0))
+
+    common = dict(rows="training step", tolerance={"grad": tol},
+                  max_abs_err=max_err)
+    # Bounds count what the backward function needs: chain_bwd the
+    # recompute and dX products (2x the forward's), reading the inputs,
+    # cotangents and weights and writing the input gradients; chain_dw the
+    # dW products (1x), writing every dW and db.  The A/G scratch and the
+    # chunk partials exist only in this design and are left out.
+    rows["bwd"] = dict(
+        common, rel_l2=errs, margin=1 / over(errs),
+        old_chain_rel_l2=control, old_chain_margin=over(control),
+        bitwise_repeatable=True,
+        kernel_ms=cuda_ms(lambda: SC.chain_backward(*args), 5),
+        plain_ms=cuda_ms(lambda: SC.chain_backward_plain(
+            emb, dists, extra, chain, a, dt_name, dfeat, dalpha), 5),
+        library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), _bf16_bound(
+            raw_in * 2 + (dfeat.numel() + dalpha.numel()) * 4 + wbytes,
+            2 * flops))))
+    rows["dw"] = dict(
+        common, kernel_ms=cuda_ms(lambda: SC.chain_dw(layout, ascr, gscr,
+                                                      dbpart), 5),
+        plain_ms=cuda_ms(dw_plain, 5), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), _bf16_bound(
+            packed.numel() * 4, flops))))
+    for k in ("bwd", "dw"):
+        log("kernels", kernel=f"shading_chain_{k}", **rows[k])
+    whole_bound, _ = _bf16_bound(raw_in + wbytes, 3 * flops)
+    log("chain", rows=n, fused_fwd_bwd_ms=cuda_ms(fused_fwd_bwd, 5),
+        old_chain_fwd_bwd_ms=cuda_ms(old_fwd_bwd, 5),
+        backward_ms=cuda_ms(lambda: SC.backward_on_card(*args), 5),
+        bound_fwd_bwd_ms=whole_bound, scratch_bytes=scratch)
+    return rows
 
 
 def phase_train(cfg, points, grid):
@@ -554,21 +780,25 @@ def phase_train(cfg, points, grid):
     warmup_ms = (time.perf_counter() - t0) * 1e3
     before = st.points.table.clone()
     torch.cuda.reset_peak_memory_stats()
-    ms, items = [], []
+    ms, host_ms, items = [], [], []
+    mem0 = torch.cuda.memory_stats()
     reset_launches()
     for b in batches[1:TRAIN_STEPS + 1]:
         t0 = time.perf_counter()
         st, it = TT.train_step(st, grid, b, bank, cfg, generator=gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         items.append({k: float(v) for k, v in it.items()})
     launches = read_launches()
+    mem1 = torch.cuda.memory_stats()
     peak = torch.cuda.max_memory_allocated()
     after = st.points.table
     # per step: one K-min over the candidates; two segment sums (the point
-    # table's and the pyramid map's gather backward); one table Adam
-    want = {"k_smallest": TRAIN_STEPS, "segment_sum": 2 * TRAIN_STEPS,
-            "adam_table": TRAIN_STEPS}
+    # table's and the pyramid map's gather backward); one table Adam; the
+    # chain once forward and once backward (chain_bwd, chain_dw)
+    want = dict.fromkeys(launches, TRAIN_STEPS)
+    want["segment_sum"] = 2 * TRAIN_STEPS
     if launches != want:
         raise AssertionError(f"training launched {launches}, want {want}")
     bad = [(i, k) for i, it in enumerate(items) for k, v in it.items()
@@ -606,6 +836,15 @@ def phase_train(cfg, points, grid):
         median_step_ms=steady, min_step_ms=min(ms), max_step_ms=max(ms),
         rays_per_step=R, rays_per_s=R / (steady / 1e3),
         max_memory_allocated=peak, launches=launches,
+        # host clock until train_step returns (before the synchronize): a
+        # step whose return time is near its step time waits on the host
+        host_return_ms=host_ms,
+        # cudaMalloc / cudaFree calls of the caching allocator in the timed
+        # steps (each cudaFree waits for the device)
+        device_segments_allocated=mem1["segment.all.allocated"]
+        - mem0["segment.all.allocated"],
+        device_segments_freed=mem1["segment.all.freed"]
+        - mem0["segment.all.freed"],
         loss_items_last=items[-1], xyz_lanes_unchanged=xyz_fixed,
         rows_moved=int(moved.sum()),
         step_segments={r["ids"]: {k: r[k] for k in (
@@ -651,7 +890,8 @@ class _Planted:
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
-        setattr(self.module, self.name, self.make(self.real))
+        fake = self.make(self.real)
+        setattr(self.module, self.name, fake)
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
@@ -661,12 +901,15 @@ def _faults(table_rows):
     """name -> (the planted fault, the reading that must reject it).  Each
     breaks one kernel's result on the main path: the segment sum of the
     point table's (table_rows ids) or of the pyramid map's gather backward
-    loses each id's last row (a boundary off by one), the K-min loses each sample's
-    nearest neighbour, the table Adam runs with the next step's bias
-    correction."""
+    loses each id's last row (a boundary off by one), the K-min loses each
+    sample's nearest neighbour, the table Adam runs with the next step's
+    bias correction, the chain's forward reads block3's extra columns one
+    column off, the chain's dW reduction drops the first chunk of rows'
+    partial."""
     import torch
     from hybridneuralrendering_tpu_torch.models import neural_points as npts
     from hybridneuralrendering_tpu_torch.ops import query
+    from hybridneuralrendering_tpu_torch.ops import shading_chain as SC
     from hybridneuralrendering_tpu_torch.train import step as TT
 
     def drop_last(on_table):
@@ -691,6 +934,19 @@ def _faults(table_rows):
             return bd, bi
         return k_smallest
 
+    def extra_off_by_one(real):
+        def chain_forward(layout, w, b, emb, dists, extra):
+            return real(layout, w, b, emb, dists,
+                        extra.roll(1, dims=1).contiguous())
+        return chain_forward
+
+    def drop_first_chunk(real):
+        def chain_dw(layout, ascr, gscr, dbpart):
+            rows = SC.CHUNK_ROWS
+            return real(layout, ascr[rows:], gscr[rows:],
+                        dbpart[rows // SC.TILE:])
+        return chain_dw
+
     def late_adam(real):
         def adam_table(p, g, mu, nu, s):
             real(p, g, mu, nu, s._replace(bc1=1 - s.b1 * (1 - s.bc1),
@@ -706,7 +962,13 @@ def _faults(table_rows):
             "k_smallest": (_Planted(query, "k_smallest", drop_nearest),
                            "item_rel_err"),
             "adam_table": (_Planted(TT, "adam_table", late_adam),
-                           "table_adam_equal")}
+                           "table_adam_equal"),
+            "shading_chain_fwd": (_Planted(SC, "chain_forward",
+                                           extra_off_by_one),
+                                  "net_grad_rel_l2"),
+            "shading_chain_dw": (_Planted(SC, "chain_dw",
+                                          drop_first_chunk),
+                                     "net_grad_rel_l2")}
 
 
 def phase_train_check(cfg, points, grid, grid_c, params):
@@ -878,6 +1140,7 @@ def main(argv=None) -> int:
     phase_build()
     sel = phase_kernels(cfg)
     adam = phase_kernels_train()
+    chain = phase_kernels_chain(config.train_config())
     points, grid, params = phase_scene(cfg)
     requests, outs, serve_launches = phase_serve(cfg, points, grid, params)
     grid_c = cpu(grid)
@@ -886,7 +1149,6 @@ def main(argv=None) -> int:
         phase_profile(cfg, points, grid, params, requests[1])
     tcfg = config.train_config()
     st, batch, bank, train_launches, seg = phase_train(tcfg, points, grid)
-    unported_chain(tcfg)
     phase_train_check(tcfg, points, grid, grid_c, params)
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank)
@@ -909,6 +1171,13 @@ def main(argv=None) -> int:
             sel),
         row("segment_sum", "tools/pallas_gather.py:68", seg),
         row("adam_table", "tools/pallas_adam.py:61", adam)]
+    chain_src = {"fwd": "tools/pallas_shading.py:201",
+                 "bwd": "tools/pallas_shading.py:217",
+                 "dw": "tools/pallas_shading.py:249"}
+    for k, replaces in chain_src.items():
+        r = dict(row("shading_chain_" + k, replaces, chain[k]),
+                 source=src + "shading_chain.cu")
+        kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,14 @@
 (JAX: hybridneuralrendering_tpu/models/aggregator.py).
 
 Every MLP runs over the full [R, SR, K] neighbour block with `pnt_mask`
-zeroing the empty slots.  Under shading_dtype=bfloat16 the per-neighbour
-chain casts its inputs and weights once at entry and the K-sum accumulates
-in float32, as in the JAX package.  In training (`train=True`) the rays
-of drop_ray_mask lose their image feature; the rematerialised chain, the
-chunked chain and the fused leaky VJP are not ported and raise.
+zeroing the empty slots.  The per-neighbour chain runs as the fused chain
+of ops/shading_chain (the port of tools/pallas_shading.py's kernel): under
+shading_dtype=bfloat16 the operands of its products are bf16 and its sums,
+bias and activations f32, where the JAX package's shipped chain is bf16
+end to end; the K-sum accumulates in float32.  In training (`train=True`)
+the rays of drop_ray_mask lose their image feature; the rematerialised
+chain, the chunked chain and the fused leaky VJP are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from hybridneuralrendering_tpu_torch.config import AggregatorConfig
 from hybridneuralrendering_tpu_torch.core.cameras import pers_delta
 from hybridneuralrendering_tpu_torch.core.encoding import positional_encoding
 from hybridneuralrendering_tpu_torch.models import feature_pyramid, fusion, mlp
+from hybridneuralrendering_tpu_torch.ops import shading_chain
 
 
 def dist_weight(name: str, dists: torch.Tensor,
@@ -90,6 +94,11 @@ def _check_supported(cfg: AggregatorConfig, train: bool = False) -> None:
         "compute_dtype != float32": cfg.compute_dtype != "float32",
         "separate_color_decoder": cfg.separate_color_decoder,
         "learnable_blur_kernel": cfg.learnable_blur_kernel,
+        "a chain without block3 or an alpha head "
+        "(shading_feature_mlp_layer3 == 0)":
+            cfg.shading_feature_mlp_layer3 == 0,
+        "act_type != leaky_relu in the shading chain":
+            cfg.act_type != "leaky_relu",
         "remat_chain in training": train and cfg.remat_chain,
         "chain_chunks > 1 in training": train and cfg.chain_chunks > 1,
         "fused_leaky_vjp in training": train and cfg.fused_leaky_vjp,
@@ -208,31 +217,19 @@ def build_dists(cfg: AggregatorConfig, sampled_xyz, sampled_xyz_pers,
 def _shading_chain(p: Dict, cfg: AggregatorConfig, emb, dflat, extras,
                    mask_w):
     """Per-neighbour MLP chain through the K-aggregation: returns
-    (density [R, SR, 1], aggregated feature [R, SR, F])."""
-    dists_enc = (positional_encoding(dflat, abs(cfg.dist_xyz_freq))
-                 if cfg.dist_xyz_freq != 0 else dflat)
-    ft = emb
-    if cfg.num_feat_freqs > 0:
-        ft = torch.cat([ft, positional_encoding(ft, cfg.num_feat_freqs)],
-                       dim=-1)
-    ft = torch.cat([ft, dists_enc], dim=-1)
-    if cfg.shading_dtype == "bfloat16":
-        ft = ft.to(torch.bfloat16)
-        extras = [e.to(torch.bfloat16) for e in extras]
-        p = {k: [{n: t.to(torch.bfloat16) for n, t in layer.items()}
-                 for layer in v] for k, v in p.items()}
-    ft = mlp.mlp_apply(p["block1"], ft, cfg.act_type, final_act=True)
-    if "block2" in p:
-        ft = mlp.mlp_apply(p["block2"], ft, cfg.act_type, final_act=True)
-    if "block3" in p:
-        ft = mlp.mlp_apply(p["block3"], torch.cat([ft] + extras, dim=-1),
-                           cfg.act_type, final_act=True)
-    if len(p["alpha"]) == 1:
-        a_raw = ft @ p["alpha"][0]["w"][:, 0] + p["alpha"][0]["b"][0]
-    else:
-        a_raw = mlp.mlp_apply(p["alpha"], ft, cfg.act_type)[..., 0]
-    a_raw = a_raw.to(mask_w.dtype)
-    # ft * mask_w promotes bf16 to f32: the K-sum accumulates in f32
+    (density [R, SR, 1], aggregated feature [R, SR, F]).  The chain itself
+    (positional encodings, block1 [+ block2], block3, alpha head) is
+    ops/shading_chain.fused_feat_alpha: the hand-written kernels on the
+    card, their plain versions on the CPU."""
+    lead = emb.shape[:-1]
+    n = int(np.prod(lead))
+    extra = (torch.cat(extras, dim=-1) if extras
+             else emb.new_zeros(lead + (0,)))
+    ft, a_raw = shading_chain.fused_feat_alpha(
+        p, cfg, emb.reshape(n, -1), dflat.reshape(n, -1),
+        extra.reshape(n, -1))
+    ft = ft.reshape(lead + (-1,))
+    a_raw = a_raw.reshape(lead)
     return (torch.sum(raw2density(a_raw, cfg.act_super) * mask_w,
                       dim=-1)[..., None],
             torch.sum(ft * mask_w[..., None], dim=-2))

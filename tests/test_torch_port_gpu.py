@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against their
-plain PyTorch versions, and a render and a training step on the card
-against the same on the CPU.  They skip where torch.cuda.is_available() is
-false.
+plain PyTorch versions (the shading chain within
+ops/shading_chain.tolerance, a relative L2 error), and a render and a
+training step on the card against the same on the CPU.  They skip where
+torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -20,6 +21,7 @@ from hybridneuralrendering_tpu_torch.models import blur, renderer
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.ops import adam as TA
 from hybridneuralrendering_tpu_torch.ops import segment_sum as TSS
+from hybridneuralrendering_tpu_torch.ops import shading_chain as TSC
 from hybridneuralrendering_tpu_torch.ops import select as TS
 from hybridneuralrendering_tpu_torch.train import state as tstate
 from hybridneuralrendering_tpu_torch.train import step as tstep
@@ -219,3 +221,110 @@ def test_train_step_on_card_matches_cpu(cuda):
     sel = cg.abs() > 1e-3 * cg.abs().max()
     torch.testing.assert_close(kt[sel], ct[sel], rtol=1e-5, atol=1e-6)
     assert torch.equal(kt[:, :3], cb[:, :3])
+
+
+def _chain_case(cuda, F, ce, n, dtype, seed=0):
+    """scannet_full's chain shapes at feature width F (block1 from the
+    32-wide embedding and 6 dists with 3 and 5 PE bands) on n rows."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cfg = dataclasses.replace(TC.scannet_full().agg, shading_feature_num=F,
+                              shading_dtype=dtype)
+    c1 = TSC.pe_width(32, 6, cfg.num_feat_freqs, cfg.dist_xyz_freq)
+
+    def stack(dims):
+        return [{"w": (torch.rand(a, b, generator=g, device=cuda) * 2 - 1)
+                 * (6.0 / (a + b)) ** 0.5,
+                 "b": (torch.rand(b, generator=g, device=cuda) * 2 - 1) * 0.1}
+                for a, b in zip(dims[:-1], dims[1:])]
+    params = {"block1": stack([c1, F, F]), "block3": stack([F + ce, F, F]),
+              "alpha": stack([F, 1])}
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)   # noqa: E731
+    x = dict(emb=0.5 * r(n, 32), dists=0.5 * r(n, 6), extra=r(n, ce),
+             dfeat=r(n, F), dalpha=r(n, 1))
+    return cfg, params, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,ce,n,dtype", [
+    (256, 7, 3_000, "bfloat16"), (256, 7, 1_000, "float32"),
+    (128, 0, 777, "bfloat16"), (128, 7, 130, "float32"),
+    (256, 7, 4_096 + 64 * 3, "bfloat16"), (128, 0, 64, "float32")])
+def test_shading_chain_kernels_match_plain(cuda, F, ce, n, dtype):
+    """Forward and the two backward kernels against chain_plain and
+    chain_backward_plain on the card, within ops/shading_chain.tolerance;
+    ragged row counts (not a multiple of the 64-row tile or of the 4,096-row
+    dW chunk) and no extra columns included."""
+    cfg, params, x = _chain_case(cuda, F, ce, n, dtype)
+    layout = TSC.chain_layout(params, cfg, 32, 6, ce)
+    w, b = TSC.pack_chain(params, layout, TSC.COMPUTE_DTYPES[dtype])
+    before = dict(TSC.LAUNCHES)
+    feat, alpha = TSC.chain_forward(layout, w, b, x["emb"], x["dists"],
+                                    x["extra"])
+    d_emb, d_dists, d_extra, packed = TSC.backward_on_card(
+        layout, w, b, x["emb"], x["dists"], x["extra"], x["dfeat"],
+        x["dalpha"])
+    torch.cuda.synchronize()
+    assert TSC.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want_f, want_a = TSC.chain_plain(x["emb"], x["dists"], x["extra"],
+                                     params, cfg, dtype)
+    got_g = TSC.unpack_chain(packed, layout)
+    want = TSC.chain_backward_plain(x["emb"], x["dists"], x["extra"], params,
+                                    cfg, dtype, x["dfeat"], x["dalpha"])
+    bwd_tol = TSC.tolerance(dtype, "grad")
+    assert TSC.rel_l2(feat, want_f) <= TSC.tolerance(dtype, "feat")
+    assert TSC.rel_l2(alpha, want_a) <= TSC.tolerance(dtype, "alpha")
+    for got, ref in zip([d_emb, d_dists, d_extra], want[:3]):
+        assert got.shape == ref.shape
+        if ref.numel():
+            assert TSC.rel_l2(got, ref) <= bwd_tol
+    for got, ref in zip(got_g, TSC._layer_list(want[3])):
+        assert TSC.rel_l2(got["w"], ref["w"]) <= bwd_tol
+        assert TSC.rel_l2(got["b"], ref["b"]) <= bwd_tol
+
+
+@pytest.mark.gpu
+def test_shading_chain_backward_is_bit_repeatable(cuda):
+    cfg, params, x = _chain_case(cuda, 256, 7, 20_000, "bfloat16", seed=1)
+    layout = TSC.chain_layout(params, cfg, 32, 6, 7)
+    w, b = TSC.pack_chain(params, layout, torch.bfloat16)
+    args = (layout, w, b, x["emb"], x["dists"], x["extra"], x["dfeat"],
+            x["dalpha"])
+    one, two = TSC.backward_on_card(*args), TSC.backward_on_card(*args)
+    for a, b_ in zip(one, two):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_feat_alpha_autograd_on_card_matches_cpu(cuda, dtype):
+    """Through torch autograd: the card's kernels against the CPU's plain
+    versions, outputs and gradients of every input and parameter."""
+    cfg, params, x = _chain_case(cuda, 128, 7, 500, dtype, seed=2)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tstate.tree_map(
+            lambda t: t.detach().to(dev).requires_grad_(True), params)
+        xs = [x[k].to(dev).requires_grad_(True)
+              for k in ("emb", "dists", "extra")]
+        feat, alpha = TSC.fused_feat_alpha(p, cfg, *xs)
+        loss = ((feat * x["dfeat"].to(dev)).sum()
+                + (alpha * x["dalpha"].to(dev)).sum())
+        grads = torch.autograd.grad(loss, xs + tstate.tree_leaves(p))
+        res[dev.type] = [t.detach().cpu() for t in (feat, alpha, *grads)]
+    outputs = ["feat", "alpha"] + ["grad"] * (len(res["cpu"]) - 2)
+    for i, (k, c, o) in enumerate(zip(res["cuda"], res["cpu"], outputs)):
+        assert TSC.rel_l2(k, c) <= TSC.tolerance(dtype, o), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,dtype", [(272, "bfloat16"), (512, "float32")])
+def test_shading_chain_kernels_refuse_layers_too_wide(cuda, F, dtype):
+    """A layer wider than the kernels' 256-column pass is refused by the C
+    function itself (cudaErrorInvalidValue), which the wrapper raises."""
+    cfg, params, x = _chain_case(cuda, F, 7, 100, dtype)
+    layout = TSC.chain_layout(params, cfg, 32, 6, 7)
+    w, b = TSC.pack_chain(params, layout, TSC.COMPUTE_DTYPES[dtype])
+    before = dict(TSC.LAUNCHES)
+    with pytest.raises(RuntimeError, match="chain_fwd"):
+        TSC.chain_forward(layout, w, b, x["emb"], x["dists"], x["extra"])
+    assert TSC.LAUNCHES == before

@@ -1,0 +1,387 @@
+"""The port's fused shading chain (ops/shading_chain.py) against the TPU
+kernel it ports, tools/pallas_shading.py:fused_feat_alpha_pe, run in
+interpret mode on the CPU and imported from tools/ as
+tools/test_pallas_shading.py does.
+
+Same numpy inputs, weights and cotangents go to both.  Tolerances:
+
+- float32: rtol 2e-5 / atol 1e-5, the bound tools/test_pallas_shading.py
+  holds the TPU kernel to; gradients compared after dividing by the largest
+  magnitude of the reference gradient, as that file does (dW and db are sums
+  over all rows).
+- bfloat16: both round the same operands to bf16 and accumulate in f32, in
+  another order, so a next layer's bf16 input can flip by one unit in the
+  last place; held at ops/shading_chain.tolerance, a relative L2 error of
+  2**-10 for feat, 2**-8 for alpha and 2**-5 for gradients, the bounds the
+  kernels are held to against the plain version on the card (the reasons
+  are in its docstring).  Each comparison prints its reading (pytest -s).
+- the explicit backward against torch autograd of chain_plain (float32, the
+  same products): rtol 1e-5 / atol 1e-6 of the largest magnitude.
+"""
+
+import dataclasses
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hybridneuralrendering_tpu.core import encoding as jenc
+from hybridneuralrendering_tpu.models import mlp as jmlp
+from hybridneuralrendering_tpu_torch import config as TC
+from hybridneuralrendering_tpu_torch.io import from_jax
+from hybridneuralrendering_tpu_torch.models import aggregator as tagg
+from hybridneuralrendering_tpu_torch.ops import shading_chain as SC
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools")
+sys.path.insert(0, TOOLS)
+import pallas_shading as PS  # noqa: E402
+
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".fixture", "ckpts", "roomsim_full", "ckpt",
+    "2000_state.npz")
+F32 = dict(rtol=2e-5, atol=1e-5)
+
+# de, dd, fe, fd: raw embedding and dist widths and their PE bands; F the
+# feature width; l1, l3 the block1 and block3 depths; head the alpha head's
+# depth; ce the extra width; n rows (none a multiple of the 64-row tile but
+# scannet_full's)
+CASES = {
+    "scannet_full": dict(de=32, dd=6, fe=3, fd=5, F=256, l1=2, l3=2, head=1,
+                         ce=7, n=512),
+    "tiny_test": dict(de=8, dd=6, fe=2, fd=2, F=128, l1=2, l3=2, head=1,
+                      ce=7, n=300),
+    "two_layer_head": dict(de=8, dd=6, fe=2, fd=2, F=64, l1=1, l3=1, head=2,
+                           ce=7, n=200),
+    "no_extra": dict(de=8, dd=3, fe=2, fd=3, F=64, l1=2, l3=1, head=1, ce=0,
+                     n=131),
+    "raw_dists": dict(de=8, dd=6, fe=0, fd=0, F=48, l1=1, l3=2, head=1, ce=4,
+                      n=77),
+}
+
+
+def _cfg(c, dtype):
+    return dataclasses.replace(
+        TC.scannet_full().agg, point_features_dim=c["de"],
+        num_feat_freqs=c["fe"], dist_xyz_freq=c["fd"],
+        shading_feature_num=c["F"], shading_dtype=dtype)
+
+
+def _np_params(c, rng):
+    """Xavier-uniform numpy weights of the chain's shapes."""
+    def stack(dims):
+        out = []
+        for a, b in zip(dims[:-1], dims[1:]):
+            lim = np.sqrt(6.0 / (a + b))
+            out.append({"w": rng.uniform(-lim, lim, (a, b)).astype(np.float32),
+                        "b": rng.uniform(-0.1, 0.1, b).astype(np.float32)})
+        return out
+    F = c["F"]
+    c1 = SC.pe_width(c["de"], c["dd"], c["fe"], c["fd"])
+    return {"block1": stack([c1] + [F] * c["l1"]),
+            "block3": stack([F + c["ce"]] + [F] * c["l3"]),
+            "alpha": stack([F] + [F // 2] * (c["head"] - 1) + [1])}
+
+
+def _inputs(c, seed=0):
+    rng = np.random.default_rng(seed)
+    n = c["n"]
+    f = lambda *s: rng.normal(size=s).astype(np.float32)   # noqa: E731
+    return dict(params=_np_params(c, rng), emb=0.5 * f(n, c["de"]),
+                dists=0.5 * f(n, c["dd"]), extra=f(n, c["ce"]),
+                dfeat=f(n, c["F"]), dalpha=f(n, 1))
+
+
+def _torch(tree):
+    return jax.tree_util.tree_map(lambda x: torch.tensor(x), tree)
+
+
+def _pallas(p, emb, dists, extra, c, dtype):
+    return PS.fused_feat_alpha_pe(p["block1"], p["block3"], p["alpha"], emb,
+                                  dists, extra, c["fe"], c["fd"],
+                                  compute_dtype=dtype, interpret=True)
+
+
+_REFS = {}
+
+
+def _reference(case, dtype):
+    """The TPU kernel's (feat, alpha) and its VJP, once per case."""
+    if (case, dtype) not in _REFS:
+        c = CASES[case]
+        a = _inputs(c)
+        jp = jax.tree_util.tree_map(jnp.asarray, a["params"])
+        out, vjp = jax.vjp(
+            lambda p, e, d, x: _pallas(p, e, d, x, c, dtype), jp,
+            jnp.asarray(a["emb"]), jnp.asarray(a["dists"]),
+            jnp.asarray(a["extra"]))
+        grads = vjp((jnp.asarray(a["dfeat"]), jnp.asarray(a["dalpha"])))
+        _REFS[case, dtype] = (a, jax.tree_util.tree_map(np.asarray, out),
+                              jax.tree_util.tree_map(np.asarray, grads))
+    return _REFS[case, dtype]
+
+
+def _close(got, want, dtype, what, output="grad"):
+    got = got.detach().numpy()
+    want = np.array(want)
+    scale = max(float(np.abs(want).max()), 1e-6) if want.size else 1.0
+    if dtype == "float32":
+        np.testing.assert_allclose(got / scale, want / scale, **F32,
+                                   err_msg=what)
+    else:
+        err = SC.rel_l2(torch.as_tensor(got), torch.as_tensor(want))
+        tol = SC.tolerance(dtype, output)
+        print(f"{what}: relative L2 error {err:.3e} (limit {tol:.3e})")
+        assert err <= tol, f"{what}: relative L2 error {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chain_plain_matches_pallas_forward(case, dtype):
+    a, (feat, alpha), _ = _reference(case, dtype)
+    c = CASES[case]
+    got_f, got_a = SC.chain_plain(
+        torch.tensor(a["emb"]), torch.tensor(a["dists"]),
+        torch.tensor(a["extra"]), _torch(a["params"]), _cfg(c, dtype), dtype)
+    assert got_f.dtype == got_a.dtype == torch.float32
+    _close(got_f, feat, dtype, "feat", "feat")
+    _close(got_a, alpha, dtype, "alpha", "alpha")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chain_backward_plain_matches_pallas_vjp(case, dtype):
+    a, _, (g_p, g_emb, g_dists, g_extra) = _reference(case, dtype)
+    c = CASES[case]
+    d_emb, d_dists, d_extra, g = SC.chain_backward_plain(
+        torch.tensor(a["emb"]), torch.tensor(a["dists"]),
+        torch.tensor(a["extra"]), _torch(a["params"]), _cfg(c, dtype), dtype,
+        torch.tensor(a["dfeat"]), torch.tensor(a["dalpha"]))
+    _close(d_emb, g_emb, dtype, "d_emb")
+    _close(d_dists, g_dists, dtype, "d_dists")
+    _close(d_extra, g_extra, dtype, "d_extra")
+    for k, layers in g_p.items():
+        for i, layer in enumerate(layers):
+            for n_ in ("w", "b"):
+                _close(g[k][i][n_], layer[n_], dtype, f"{k}/{i}/{n_}")
+
+
+@pytest.mark.parametrize("case", ["tiny_test", "two_layer_head", "no_extra",
+                                  "raw_dists"])
+def test_chain_backward_plain_matches_autograd(case):
+    """float32: the explicit backward equals torch autograd of chain_plain
+    through the same products."""
+    c = CASES[case]
+    a = _inputs(c, seed=1)
+    cfg = _cfg(c, "float32")
+    p = jax.tree_util.tree_map(lambda x: torch.tensor(x, requires_grad=True),
+                               a["params"])
+    x = [torch.tensor(a[k], requires_grad=True)
+         for k in ("emb", "dists", "extra")]
+    feat, alpha = SC.chain_plain(*x, p, cfg, "float32")
+    df, da = torch.tensor(a["dfeat"]), torch.tensor(a["dalpha"])
+    leaves = jax.tree_util.tree_leaves(p)
+    auto = torch.autograd.grad((feat * df).sum() + (alpha * da).sum(),
+                               x + leaves)
+    *dx, g = SC.chain_backward_plain(*[t.detach() for t in x],
+                                     jax.tree_util.tree_map(
+                                         lambda t: t.detach(), p), cfg,
+                                     "float32", df, da)
+    for got, want in zip(dx + jax.tree_util.tree_leaves(g), auto):
+        assert got.shape == want.shape
+        scale = max(float(want.abs().max()), 1e-6) if want.numel() else 1.0
+        torch.testing.assert_close(got / scale, want / scale, rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_function_on_cpu_runs_the_plain_versions(dtype):
+    """FusedFeatAlpha on CPU tensors: its outputs are chain_plain's and its
+    gradients (inputs, every weight and bias) chain_backward_plain's."""
+    c = CASES["two_layer_head"]
+    a = _inputs(c, seed=2)
+    cfg = _cfg(c, dtype)
+    p = jax.tree_util.tree_map(lambda x: torch.tensor(x, requires_grad=True),
+                               a["params"])
+    x = [torch.tensor(a[k], requires_grad=True)
+         for k in ("emb", "dists", "extra")]
+    feat, alpha = SC.fused_feat_alpha(p, cfg, *x)
+    df, da = torch.tensor(a["dfeat"]), torch.tensor(a["dalpha"])
+    leaves = jax.tree_util.tree_leaves(p)
+    got = torch.autograd.grad((feat * df).sum() + (alpha * da).sum(),
+                              x + leaves)
+    det = jax.tree_util.tree_map(lambda t: t.detach(), p)
+    want_f, want_a = SC.chain_plain(*[t.detach() for t in x], det, cfg, dtype)
+    *dx, g = SC.chain_backward_plain(*[t.detach() for t in x], det, cfg,
+                                     dtype, df, da)
+    assert torch.equal(feat, want_f) and torch.equal(alpha, want_a)
+    for a_, b_ in zip(got, dx + jax.tree_util.tree_leaves(g)):
+        assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["scannet_full", "no_extra",
+                                  "two_layer_head"])
+def test_pack_chain_round_trip(case, dtype):
+    """The forward half of the packed weights, unpacked, gives the
+    parameters back (bf16-rounded in bf16); the W^T half is its transpose;
+    padding is zero."""
+    c = CASES[case]
+    p = _torch(_inputs(c)["params"])
+    layout = SC.chain_layout(p, _cfg(c, dtype), c["de"], c["dd"], c["ce"])
+    dt = SC.COMPUTE_DTYPES[dtype]
+    w, b = SC.pack_chain(p, layout, dt)
+    assert w.dtype == dt and b.dtype == torch.float32
+    assert w.numel() == 2 * layout.wtot and b.numel() == layout.btot
+    back = SC.unpack_chain(torch.cat([w[:layout.wtot].float(), b]), layout)
+    for s, want, got in zip(layout.layers, SC._layer_list(p), back):
+        assert torch.equal(got["w"], want["w"].to(dt).float())
+        assert torch.equal(got["b"], want["b"])
+        wp = w[s.woff:s.woff + s.kp * s.np].view(s.kp, s.np)
+        wt = w[s.wtoff:s.wtoff + s.kp * s.np].view(s.np, s.kp)
+        assert torch.equal(wt, wp.t())
+        assert float(wp.float().abs().sum()) == pytest.approx(
+            float(want["w"].to(dt).float().abs().sum()), rel=1e-6)
+        assert s.kp % 16 == 0 and s.np % 16 == 0 and s.woff % 256 == 0
+
+
+def test_scannet_full_layout():
+    """The packed layout at the scannet_full widths: padded input widths
+    288, 256, 272 (256 + the 7 extra columns), 256, 256; 271,360
+    multiply-adds a row; 13 head ints and 8 per layer for the kernels."""
+    c = CASES["scannet_full"]
+    p = _torch(_inputs(c)["params"])
+    layout = SC.chain_layout(p, _cfg(c, "bfloat16"), 32, 6, 7)
+    assert [s.kp for s in layout.layers] == [288, 256, 272, 256, 256]
+    assert [s.np for s in layout.layers] == [256, 256, 256, 256, 16]
+    assert layout.layers[2].extra_at == (256, 256)
+    assert sum(s.kin * s.nout for s in layout.layers) == 271_360
+    assert len(layout.meta) == 13 + 8 * 5
+
+
+def test_chain_layout_rejects_bad_shapes():
+    c = CASES["tiny_test"]
+    p = _torch(_inputs(c)["params"])
+    cfg = _cfg(c, "float32")
+    with pytest.raises(ValueError):
+        SC.chain_layout(p, cfg, c["de"], c["dd"], c["ce"] + 1)
+    with pytest.raises(ValueError):
+        SC.chain_layout({k: v for k, v in p.items() if k != "block3"}, cfg,
+                        c["de"], c["dd"], c["ce"])
+    with pytest.raises(ValueError):
+        SC.chain_plain(torch.zeros(2, 8), torch.zeros(2, 6),
+                       torch.zeros(2, 7), p, cfg, "float16")
+
+
+def test_chain_kernels_never_fall_back():
+    """Tensors that are not on the CPU go to the kernels, which take only
+    CUDA tensors: anything else raises."""
+    c = CASES["tiny_test"]
+    p = _torch(_inputs(c)["params"])
+    layout = SC.chain_layout(p, _cfg(c, "bfloat16"), c["de"], c["dd"],
+                             c["ce"])
+    meta = lambda *s: torch.empty(*s, device="meta")     # noqa: E731
+    with pytest.raises(ValueError):
+        SC.chain_forward(layout, meta(2 * layout.wtot), meta(layout.btot),
+                         meta(10, 8), meta(10, 6), meta(10, 7))
+
+
+def test_aggregator_rejects_chain_without_block3():
+    cfg = dataclasses.replace(TC.tiny_test().agg,
+                              shading_feature_mlp_layer3=0)
+    with pytest.raises(NotImplementedError, match="block3"):
+        tagg._check_supported(cfg)
+
+
+def test_params_from_numpy_carries_the_chain_unchanged():
+    """The chain keeps the JAX layout: io.from_jax hands its weights over
+    as they are, and the layout reads them without reshuffling."""
+    c = CASES["scannet_full"]
+    tree = _inputs(c)["params"]
+    got = from_jax.params_from_numpy(tree, device="cpu")
+    for k, layers in tree.items():
+        for i, layer in enumerate(layers):
+            for n_ in ("w", "b"):
+                np.testing.assert_array_equal(got[k][i][n_].numpy(),
+                                              layer[n_])
+    SC.chain_layout(got, _cfg(c, "bfloat16"), 32, 6, 7)
+
+
+# ------------------------------------------------------ trained-weight anchor
+
+def _jax_chain(p, emb, dists, extra, fe, fd, dtype):
+    """The JAX package's shipped chain (models/aggregator.apply's chain_fn
+    before the K-sum), from its own encoding and mlp modules: under bf16 one
+    cast of inputs and weights at entry, bf16 end to end."""
+    ft = jnp.concatenate([emb, jenc.positional_encoding(emb, fe)], -1)
+    ft = jnp.concatenate([ft, jenc.positional_encoding(dists, fd)], -1)
+    if dtype == "bfloat16":
+        ft = ft.astype(jnp.bfloat16)
+        extra = extra.astype(jnp.bfloat16)
+        p = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), p)
+    ft = jmlp.mlp_apply(p["block1"], ft, "leaky_relu", final_act=True)
+    ft = jmlp.mlp_apply(p["block3"], jnp.concatenate([ft, extra], -1),
+                        "leaky_relu", final_act=True)
+    a = jnp.einsum("...c,c->...", ft, p["alpha"][0]["w"][:, 0])
+    a = a + p["alpha"][0]["b"][0]
+    return ft.astype(jnp.float32), a.astype(jnp.float32)[:, None]
+
+
+def test_trained_weight_anchor():
+    """The trained scannet_full-width chain of the fixture checkpoint on
+    realistic inputs: trained point embeddings, neighbour offsets of the
+    query radius (4 voxels of 8 mm, world and camera-space deltas; a third
+    of the slots empty, zero), colours in [0, 1] and unit-vector deltas.
+    The port's bf16 chain matches the TPU kernel's bf16 output within
+    ops/shading_chain.tolerance, and is no farther from the JAX float32
+    chain than the JAX package's shipped bf16 chain is."""
+    if not os.path.exists(FIXTURE):
+        pytest.skip("the fixture checkpoint is not in this checkout")
+    z = np.load(FIXTURE)
+    p = {k: [{n_: z[f"params/aggregator/{k}/{i}/{n_}"] for n_ in ("w", "b")}
+             for i in range(2 if k != "alpha" else 1)]
+         for k in ("block1", "block3", "alpha")}
+    n = 3000
+    rng = np.random.default_rng(0)
+    emb = z["points/embedding"][rng.choice(400_000, n, replace=False)]
+    emb = emb.astype(np.float32)
+    radius = 4 * 0.008
+    dists = rng.uniform(-radius, radius, (n, 6)).astype(np.float32)
+    empty = rng.random(n) < 1 / 3
+    dists[empty] = 0.0
+    color = rng.random((n, 3)).astype(np.float32)
+    pdir = rng.normal(size=(n, 3))
+    vdir = rng.normal(size=(n, 3))
+    pdir /= np.linalg.norm(pdir, axis=1, keepdims=True)
+    vdir /= np.linalg.norm(vdir, axis=1, keepdims=True)
+    extra = np.concatenate([color, pdir - vdir,
+                            np.sum(pdir * vdir, 1, keepdims=True)],
+                           1).astype(np.float32)
+    cfg = TC.scannet_full().agg
+    fe, fd = cfg.num_feat_freqs, cfg.dist_xyz_freq
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+    je, jd, jx = jnp.asarray(emb), jnp.asarray(dists), jnp.asarray(extra)
+    tpu = _pallas(jp, je, jd, jx, dict(fe=fe, fd=fd), "bfloat16")
+    ref32 = _jax_chain(jp, je, jd, jx, fe, fd, "float32")
+    ship16 = _jax_chain(jp, je, jd, jx, fe, fd, "bfloat16")
+    port = SC.chain_plain(torch.tensor(emb), torch.tensor(dists),
+                          torch.tensor(extra), _torch(p), cfg, "bfloat16")
+    for i, name in enumerate(("feat", "alpha")):
+        got = port[i]
+        to_tpu = SC.rel_l2(got, torch.tensor(np.asarray(tpu[i])))
+        tol = SC.tolerance("bfloat16", name)
+        f32 = torch.tensor(np.asarray(ref32[i]))
+        ship = torch.tensor(np.asarray(ship16[i]))
+        d_port = (float((got - f32).abs().max()), SC.rel_l2(got, f32))
+        d_ship = (float((ship - f32).abs().max()), SC.rel_l2(ship, f32))
+        msg = (f"{name}: port bf16 vs TPU kernel bf16, relative L2 "
+               f"{to_tpu:.3e} (limit {tol:.3e}); distance from the JAX f32 "
+               f"chain (max abs, relative L2): port bf16 {d_port}, JAX "
+               f"shipped bf16 {d_ship}")
+        print(msg)
+        assert to_tpu <= tol, msg
+        assert d_port[0] <= d_ship[0] and d_port[1] <= d_ship[1], msg

@@ -7,15 +7,17 @@ Phases, each printing one JSON progress line:
   2. build       every CUDA kernel of the port, one nvcc per source, together;
   3. kernels     each kernel against its plain PyTorch version on the card at
                  the main path's shapes, with the tolerance it holds, times,
-                 bound and the time of one PyTorch library call (and the
-                 library cumsum as a yardstick for the unported scan kernel);
+                 bound and the time of one PyTorch library call;
                  the shading chain's forward at a serving chunk's and a
                  training step's rows and its two backward kernels at a
                  step's, with a planted fault, a bitwise repeat and the old
                  per-layer bf16 chain as a control the comparisons reject
-                 and as yardstick;
+                 and as yardstick; the row scan at float32 [602,112, 64]
+                 and int32 [602,112] and [16,200,000], with an exclusive
+                 scan as the planted fault;
   4. scene       the 600k-point serve_config scene, grid and random
-                 full-width parameters, built on the card;
+                 full-width parameters, built on the card (two row-scan
+                 launches: the grid's and the supervoxels' segments);
   5. serve       4 requests of 16,384 rays through serve.render_rays, with
                  every kernel's launch count read over exactly that run (one
                  K-min and one chain forward per request);
@@ -26,17 +28,30 @@ Phases, each printing one JSON progress line:
                  pyramid CNN inside the step), every kernel's launch count
                  read over exactly the timed steps (per step one K-min, two
                  segment sums, one table Adam, one chain forward and one of
-                 each chain backward kernel); then the two segment
+                 each chain backward kernel, no row scan); then the two segment
                  sums of one more step, captured and held against the plain
                  version;
-  8. train_check one step of 256 rays from one state on the card and on the
+  8. train_cached stage maps of the views from the trained parameters,
+                 built once through PyramidCache (bf16), then 1 warm-up and
+                 5 timed cached train_steps: the dedup gather ranks its
+                 unique rows with the row scan; per step one K-min, ONE
+                 segment sum (the cached map takes no gradient), one table
+                 Adam, each chain kernel once and one row scan; then the
+                 dedup gather against a direct table[idx] at the step's
+                 ids, and the blend line (bench.py's fields: 10% uncached,
+                 90% cached steps, from the config's burst schedule);
+  9. train_check one step of 256 rays from one state on the card and on the
                  CPU (plain versions), compared; the same on the card with
-                 each of six planted kernel faults must be rejected.
-`--profile` adds a torch.profiler pass over one more request and one more
-training step and prints the kernels that took the most device time.
+                 each of six planted kernel faults must be rejected; then a
+                 cached step the same way, where a rank scan made exclusive
+                 (the dedup gather's ranks off by one) must be rejected.
+`--profile` adds a torch.profiler pass over one more request, one more
+training step and one more cached step and prints the kernels that took the
+most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
-the serve and train runs), the card as nvidia-smi names it, and
+the serve, train and train_cached runs), the card as nvidia-smi names it,
+and
 {"ok": true, "device": {...}}.  Any failure exits non-zero before those
 lines.  The port's float32 matmuls and convolutions run without TF32
 (torch.backends.cuda.matmul.allow_tf32 stays False; serving and the
@@ -64,6 +79,12 @@ TRAIN_STEPS = 5
 # the ids and empty slots a step has (the train phase's census, PERF.md)
 SEG_ROWS, SEG_COLS, SEG_IDS = 3_136 * 24 * 8, 64, 600_000
 SEG_TOUCHED, SEG_EMPTY = 68_315, 408_048
+# the row scan's int32 inputs on the main path: the dedup gather's first-slot
+# flags over a step's R * SR * K slots (68.3k unique ids and the empty
+# slots' id 0) and the supervoxel build's head flags over its 27 * 600,000
+# keys (3.77M nodes, the scene line's census, PERF.md)
+SCAN_RANK, SCAN_RANK_NEW = SEG_ROWS, SEG_TOUCHED + 1
+SCAN_GRID, SCAN_GRID_NEW = 27 * 600_000, 3_770_000
 # the train_check batch: 2x2 patches of 8x8 rays on the same scene
 CHECK_PATCHES, CHECK_PATCH_SIZE = 2, 8
 # published H100 SXM peaks (dense): bytes/s of HBM3, float32 op/s outside
@@ -108,20 +129,23 @@ def phase_device():
 
 
 def kernel_libs():
-    from hybridneuralrendering_tpu_torch.ops import (adam, segment_sum,
+    from hybridneuralrendering_tpu_torch.ops import (adam, scan, segment_sum,
                                                      select, shading_chain)
     return {**select.KERNEL_LIBS, **segment_sum.KERNEL_LIBS,
-            **adam.KERNEL_LIBS, **shading_chain.KERNEL_LIBS}
+            **adam.KERNEL_LIBS, **shading_chain.KERNEL_LIBS,
+            **scan.KERNEL_LIBS}
 
 
 def launch_counters():
     """name -> the wrapper that counts the kernel's launches in its
     `launches` (the shading chain's wrappers count in one module dict,
     shading_chain.LAUNCHES)."""
-    from hybridneuralrendering_tpu_torch.ops import adam, segment_sum, select
+    from hybridneuralrendering_tpu_torch.ops import (adam, scan, segment_sum,
+                                                     select)
     return {"k_smallest": select.k_smallest,
             "segment_sum": segment_sum.segment_sum,
-            "adam_table": adam.adam_table}
+            "adam_table": adam.adam_table,
+            "cumsum_rows": scan.cumsum_rows}
 
 
 def reset_launches():
@@ -310,12 +334,6 @@ def phase_kernels_train():
     heavy = torch.randint(0, 16, (SEG_ROWS,), generator=gen, device="cuda")
     segment_sum_row(sg, _sorted_segments(heavy * 37_501, SEG_IDS), SEG_IDS,
                     "16 ids")
-    # a yardstick for tools/pallas_scan.py:cumsum_rows, which is not ported:
-    # the library's cumsum at the shape the JAX gather backward gives it
-    bound, by = _bound(2 * SEG_ROWS * SEG_COLS * 4, SEG_ROWS * SEG_COLS)
-    log("unported", kernel="cumsum_rows", shape=[SEG_ROWS, SEG_COLS],
-        library_ms=cuda_ms(lambda: torch.cumsum(sg, dim=0)), bound_ms=bound,
-        bound_by=by)
 
     N, C = SEG_IDS, SEG_COLS
     o = OptimConfig()
@@ -349,19 +367,115 @@ def phase_kernels_train():
     return adam
 
 
+def scan_row(x, label, iters=10):
+    """The row-scan kernel against its plain version on x:
+      - int32: bit for bit;
+      - float32: within ops/scan.tolerance ((depth + 2) * 2**-24 *
+        cumsum|x|), and rows of integers in +-[1, 8] of the same shape (every
+        partial sum exact) bit for bit;
+      - a planted fault, the exclusive scan (kernel - x), must fail each
+        comparison;
+      - two launches bit for bit."""
+    import torch
+    from hybridneuralrendering_tpu_torch.ops import scan as SC
+    got, again = SC.cumsum_rows(x), SC.cumsum_rows(x)
+    want = SC.cumsum_rows_plain(x)
+    cases = [(x, got, want)]
+    if x.dtype == torch.float32:
+        gen = torch.Generator(device="cuda").manual_seed(x.shape[0])
+        q = _integer_rows(x.shape[0], x.shape[1], gen)
+        cases.append((q, SC.cumsum_rows(q), SC.cumsum_rows_plain(q)))
+        tol = SC.tolerance(x)
+        err = (got.double() - want.double()).abs()
+        fault = ((got - x).double() - want.double()).abs()
+        max_err = float(err.max())
+        over, fault_over = float((err / tol).max()), float((fault / tol)
+                                                           .max())
+        tolerance = "(depth+2)*2^-24*cumsum|x|; integer rows bitwise"
+    else:
+        max_err = float((got - want).abs().max())
+        over = fault_over = None
+        tolerance = "bitwise"
+    torch.cuda.synchronize()
+    if over is not None and (over > 1 or fault_over <= 1):
+        raise AssertionError(f"cumsum_rows ({label}): kernel reads {over} "
+                             f"of its tolerance, the exclusive scan "
+                             f"{fault_over}")
+    for xi, g, w in cases[1 if over is not None else 0:]:
+        if not torch.equal(g, w):
+            raise AssertionError(f"cumsum_rows kernel != plain ({label}, "
+                                 f"{xi.dtype} bitwise)")
+        if torch.equal(g - xi, w):
+            raise AssertionError(f"cumsum_rows check passed an exclusive "
+                                 f"scan ({label})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"cumsum_rows is not deterministic ({label})")
+    M = x.shape[0]
+    F = x.shape[1] if x.dim() == 2 else 1
+    bound, by = _bound(2 * M * F * 4, M * F)
+    slow = F > 1 and M > 10 ** 5      # torch's outer-dim scans: ~0.2 s each
+    lib_kw = {} if x.dtype == torch.float32 else {"dtype": torch.int32}
+    row = dict(
+        shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
+        input=label, tolerance=tolerance, max_abs_err=max_err,
+        max_err_over_tolerance=over, planted_fault_over_tolerance=fault_over,
+        integer_rows_bitwise=True, planted_fault_rejected=True,
+        bitwise_repeatable=True,
+        kernel_ms=cuda_ms(lambda: SC.cumsum_rows(x), iters),
+        plain_ms=cuda_ms(lambda: SC.cumsum_rows_plain(x), 2 if slow
+                         else iters),
+        library_ms=cuda_ms(lambda: torch.cumsum(x, dim=0, **lib_kw),
+                           2 if slow else iters),
+        bound_ms=bound, bound_by=by)
+    log("kernels", kernel="cumsum_rows", **row)
+    return row
+
+
+def _flags(n, ones, gen):
+    """int32 [n] 0/1 flags with `ones` ones, the first among them."""
+    import torch
+    f = torch.zeros(n, dtype=torch.int32, device="cuda")
+    f[torch.randperm(n - 1, generator=gen, device="cuda")[:ones - 1] + 1] = 1
+    f[0] = 1
+    return f
+
+
+def phase_kernels_scan():
+    """The row scan at the TPU kernel's function (float32 [602,112, 64], the
+    JAX gather backward's cotangent shape) and at the main path's two int32
+    uses: the dedup gather's ranks and the supervoxel build's segments."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scan_row(torch.randn(SEG_ROWS, SEG_COLS, generator=gen, device="cuda"),
+             "normal rows", iters=5)
+    rank = scan_row(_flags(SCAN_RANK, SCAN_RANK_NEW, gen),
+                    "dedup first-slot flags")
+    scan_row(_flags(SCAN_GRID, SCAN_GRID_NEW, gen), "grid head flags")
+    return rank
+
+
 def phase_scene(cfg):
     import torch
     from hybridneuralrendering_tpu_torch.data import synthetic
     from hybridneuralrendering_tpu_torch.models import renderer
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    reset_launches()
     points, grid = synthetic.make_synthetic_scene(
         cfg, cfg.points.num_points, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = read_launches()
     params = renderer.init_params(cfg, seed=0, device=DEVICE)
     torch.cuda.synchronize()
+    # the grid build ranks the segments of its voxel ids and of its
+    # supervoxel keys with the row scan, and launches nothing else
+    want = dict.fromkeys(launches, 0)
+    want["cumsum_rows"] = 2
+    if launches != want:
+        raise AssertionError(f"the grid build launched {launches}")
     log("scene", seconds=time.perf_counter() - t0,
         points=int(points.num_live), occupied_voxels=int(grid.num_occ),
-        supervoxel_nodes=int(grid.num_nodes),
+        supervoxel_nodes=int(grid.num_nodes), launches=launches,
         max_memory_allocated=torch.cuda.max_memory_allocated())
     return points, grid, params
 
@@ -796,9 +910,11 @@ def phase_train(cfg, points, grid):
     after = st.points.table
     # per step: one K-min over the candidates; two segment sums (the point
     # table's and the pyramid map's gather backward); one table Adam; the
-    # chain once forward and once backward (chain_bwd, chain_dw)
+    # chain once forward and once backward (chain_bwd, chain_dw); no row
+    # scan (the uncached step gathers the table directly)
     want = dict.fromkeys(launches, TRAIN_STEPS)
     want["segment_sum"] = 2 * TRAIN_STEPS
+    want["cumsum_rows"] = 0
     if launches != want:
         raise AssertionError(f"training launched {launches}, want {want}")
     bad = [(i, k) for i, it in enumerate(items) for k, v in it.items()
@@ -850,7 +966,109 @@ def phase_train(cfg, points, grid):
         step_segments={r["ids"]: {k: r[k] for k in (
             "shape", "rows_in_segments", "touched_ids", "max_segment",
             "kernel_ms")} for r in step_rows})
-    return st, batches[-1], bank, launches, step_rows[0]
+    return st, batches[-1], bank, launches, step_rows[0], steady
+
+
+def phase_train_cached(cfg, st, grid, bank, uncached_ms):
+    """The pyramid-cached step on the trained state: the views' stage maps
+    built once through PyramidCache (bf16, from the state's parameters),
+    then 1 warm-up and TRAIN_STEPS timed cached steps; launch counts over
+    exactly the timed steps.  Then the dedup gather of the warm-up step's
+    ids against a direct table[idx], and the blend of bench.py."""
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+    from hybridneuralrendering_tpu_torch.train import pyramid_cache as PC
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    batches = [synthetic.make_synthetic_batch(cfg, seed=30 + i,
+                                              device=DEVICE)
+               for i in range(TRAIN_STEPS + 1)]
+    views = batches[0]["images_nearest"]
+    cache = PC.PyramidCache(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = (views, cache.get_stack(st.params, views, range(len(views))))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    R = cfg.sampling.rays_per_batch
+
+    captured = []
+    real = npts.dedup_gather
+    npts.dedup_gather = lambda table, idx, u: (
+        captured.append((table.detach(), idx.clone(), u))
+        or real(table, idx, u))
+    try:
+        t0 = time.perf_counter()
+        st, _ = TT.train_step(st, grid, batches[0], bank, cfg, generator=gen,
+                              img_feat_staged=staged)
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        npts.dedup_gather = real
+    torch.cuda.reset_peak_memory_stats()
+    ms, host_ms, items = [], [], []
+    reset_launches()
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        st, it = TT.train_step(st, grid, b, bank, cfg, generator=gen,
+                               img_feat_staged=staged)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        items.append({k: float(v) for k, v in it.items()})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # per step: one K-min, ONE segment sum (the point table's: the cached
+    # map takes no gradient), one table Adam, each chain kernel once, and
+    # one row scan (the dedup gather's ranks)
+    want = dict.fromkeys(launches, TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"cached training launched {launches}, want "
+                             f"{want}")
+    bad = [(i, k) for i, it in enumerate(items) for k, v in it.items()
+           if not math.isfinite(v)]
+    if bad or len(captured) != 1:
+        raise AssertionError(f"loss items not finite: {bad}; dedup gathers "
+                             f"in a step: {len(captured)}")
+
+    # the dedup gather (with its host read of the unique count) against a
+    # direct gather of the same ids; the host read alone on an idle queue
+    table, idx, u_cap = captured[0]
+    unique = int(torch.unique(torch.clamp(idx, min=0)).numel())
+    one = torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        int(one[-1])
+    read_us = (time.perf_counter() - t0) / 100 * 1e6
+    dedup = dict(slots=idx.numel(), unique_ids=unique,
+                 u_cap=min(u_cap, idx.numel()),
+                 dedup_ms=cuda_ms(lambda: npts.dedup_gather(table, idx,
+                                                            u_cap)),
+                 direct_ms=cuda_ms(lambda: table[torch.clamp(idx, min=0)]),
+                 host_read_us=read_us)
+    steady = sorted(ms)[len(ms) // 2]
+    log("train_cached", stage_map_build_ms=build_ms,
+        cache=dict(hits=cache.hits, misses=cache.misses,
+                   bytes=sum(x.numel() * x.element_size()
+                             for x in staged[1])),
+        warmup_ms=warmup_ms, step_ms=ms, median_step_ms=steady,
+        min_step_ms=min(ms), max_step_ms=max(ms), rays_per_step=R,
+        rays_per_s=R / (steady / 1e3), max_memory_allocated=peak,
+        launches=launches, host_return_ms=host_ms,
+        loss_items_last=items[-1], dedup_gather=dedup)
+    o = cfg.optim
+    share = o.pyramid_burst_steps / o.pyramid_cycle_steps
+    t_unc, t_c = uncached_ms / 1e3, steady / 1e3
+    log("blend", train_rays_per_s=R / (share * t_unc + (1 - share) * t_c),
+        uncached_rays_per_s=R / t_unc, cached_rays_per_s=R / t_c,
+        uncached_share=share, uncached_step_ms=uncached_ms,
+        cached_step_ms=steady)
+    if t_c > t_unc:
+        log("note", text=f"the cached step ({steady:.3f} ms) is slower than "
+            f"the uncached step ({uncached_ms:.3f} ms)")
+    return st, staged, launches
 
 
 def _adam_agreement(g_card, g_cpu, d_card, d_cpu, lr):
@@ -971,6 +1189,18 @@ def _faults(table_rows):
                                      "net_grad_rel_l2")}
 
 
+def _cached_faults():
+    """The cached step's planted fault: the dedup gather's rank scan made
+    exclusive, so each unique row's first slot takes the previous row's
+    rank (its ranks off by one)."""
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+
+    def exclusive(real):
+        return lambda x: real(x) - x
+    return {"cumsum_rows (dedup rank)": (
+        _Planted(npts, "cumsum_rows", exclusive), "item_rel_err")}
+
+
 def phase_train_check(cfg, points, grid, grid_c, params):
     """One step of CHECK_PATCHES^2 patches of CHECK_PATCH_SIZE^2 rays from
     one state on the card and on the CPU (plain versions).  The bf16
@@ -992,12 +1222,16 @@ def phase_train_check(cfg, points, grid, grid_c, params):
         may change sign, and where both gradients agree in sign and exceed
         1e-5 the updates agree to 1e-2 * lr (_adam_agreement).
     Then the card's step is run again with each of _faults() planted, and
-    the check must reject each of them."""
+    the check must reject each of them.  Then the same for a cached step
+    (stage maps through PyramidCache on each device, the dedup gather) with
+    _cached_faults() planted.  Each control reports its margin, the reading
+    that rejects it over that reading's limit."""
     import dataclasses
     import torch
     from hybridneuralrendering_tpu_torch.data import synthetic
     from hybridneuralrendering_tpu_torch.models import blur
     from hybridneuralrendering_tpu_torch.ops import adam as A
+    from hybridneuralrendering_tpu_torch.train import pyramid_cache as PC
     from hybridneuralrendering_tpu_torch.train import state as TS
     from hybridneuralrendering_tpu_torch.train import step as TT
     small = cfg.replace(sampling=dataclasses.replace(
@@ -1012,14 +1246,20 @@ def phase_train_check(cfg, points, grid, grid_c, params):
     bank = torch.as_tensor(blur.generate_kernel_bank(small.blur))
     t0 = time.perf_counter()
 
-    def run(dev, g):
+    def run(dev, g, cached=False):
         pts = dataclasses.replace(points, table=points.table.to(dev).clone(),
                                   mask=points.mask.to(dev))
         st = TS.create_train_state(TS.tree_map(torch.clone, params), pts,
                                    small, device=dev)
         b = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+        staged = None
+        if cached:
+            views = b["images_nearest"]
+            staged = (views, PC.PyramidCache(small).get_stack(
+                st.params, views, range(len(views))))
         items, g_net, g_table = TT.loss_and_grads(
-            st, g, b, bank.to(dev), small, noise=noise.to(dev))
+            st, g, b, bank.to(dev), small, noise=noise.to(dev),
+            img_feat_staged=staged)
         p_before = [t.clone() for t in TS.tree_leaves(st.params)]
         t_before = st.points.table.clone()
         TT.apply_updates(st, g_net, g_table, small)
@@ -1080,45 +1320,66 @@ def phase_train_check(cfg, points, grid, grid_c, params):
             table_adam_equal=not r["table_adam_equal"],
             net_adam_err=r["net_adam_err_over_lr"] > 1e-5)
 
-    card, ref = run(DEVICE, grid), run("cpu", grid_c)
-    sound = readings(card, ref)
-    upd_table = _adam_agreement(card["g_table"], ref["g_table"],
-                                card["d_table"], ref["d_table"], o.plr)
-    upd_net = _adam_agreement(card["g_net"], ref["g_net"], card["d_net"],
-                              ref["d_net"], o.lr)
-    controls = {}
-    for name, (fault, reading) in _faults(points.capacity).items():
-        with fault:
-            r = readings(run(DEVICE, grid), ref)
-        controls[name] = dict(r, rejected_by=reading,
-                              rejected=rejected(r)[reading])
-    log("train_check", rays=R, items_card=card["items"], sound=sound,
-        controls=controls, table_update=upd_table, net_update=upd_net,
-        limits=dict(items=f"rel {ITEM_REL_LIMIT} of max(|item|, 1e-3)",
-                    grads=f"rel L2: table {TABLE_GRAD_LIMIT}, network "
-                    f"and each part {NET_GRAD_LIMIT}",
-                    adam="of the card's own gradient: table bitwise, "
-                    "network 2^-23*|p| + 1e-5*lr",
-                    update="no sign flip where |g| >= 1e-2 max|g|; "
-                    "1e-2*lr where signs agree and both |g| > 1e-5"),
-        seconds=time.perf_counter() - t0)
-    failed = [k for k, v in rejected(sound).items() if v]
-    if (failed or upd_table["disagree"] or upd_net["disagree"]
-            or upd_table["large_flips"] or upd_net["large_flips"]
-            or upd_table["compared"] == 0):
-        raise AssertionError(f"card and CPU training steps differ: {failed}")
-    missed = [k for k, v in controls.items() if not v["rejected"]]
-    if missed:
-        raise AssertionError(f"train_check passed planted faults: {missed}")
+    def margin(r, reading):
+        """The rejecting reading over its limit (None for the bitwise
+        Adam comparison)."""
+        return dict(
+            item_rel_err=r["item_rel_err"] / ITEM_REL_LIMIT,
+            table_grad_rel_l2=max(r["table_grad_rel_l2"],
+                                  r["table_row0_rel_l2"]) / TABLE_GRAD_LIMIT,
+            net_grad_rel_l2=max(r["net_grad_rel_l2"],
+                                *r["net_part_rel_l2"].values())
+            / NET_GRAD_LIMIT).get(reading)
+
+    def check(label, cached, faults):
+        card = run(DEVICE, grid, cached)
+        ref = run("cpu", grid_c, cached)
+        sound = readings(card, ref)
+        upd_table = _adam_agreement(card["g_table"], ref["g_table"],
+                                    card["d_table"], ref["d_table"], o.plr)
+        upd_net = _adam_agreement(card["g_net"], ref["g_net"],
+                                  card["d_net"], ref["d_net"], o.lr)
+        controls = {}
+        for name, (fault, reading) in faults.items():
+            with fault:
+                r = readings(run(DEVICE, grid, cached), ref)
+            controls[name] = dict(r, rejected_by=reading,
+                                  rejected=rejected(r)[reading],
+                                  margin=margin(r, reading))
+        log(label, rays=R, items_card=card["items"], sound=sound,
+            controls=controls, table_update=upd_table, net_update=upd_net,
+            limits=dict(items=f"rel {ITEM_REL_LIMIT} of max(|item|, 1e-3)",
+                        grads=f"rel L2: table {TABLE_GRAD_LIMIT}, network "
+                        f"and each part {NET_GRAD_LIMIT}",
+                        adam="of the card's own gradient: table bitwise, "
+                        "network 2^-23*|p| + 1e-5*lr",
+                        update="no sign flip where |g| >= 1e-2 max|g|; "
+                        "1e-2*lr where signs agree and both |g| > 1e-5"),
+            seconds=time.perf_counter() - t0)
+        failed = [k for k, v in rejected(sound).items() if v]
+        if (failed or upd_table["disagree"] or upd_net["disagree"]
+                or upd_table["large_flips"] or upd_net["large_flips"]
+                or upd_table["compared"] == 0):
+            raise AssertionError(f"card and CPU training steps differ "
+                                 f"({label}): {failed}")
+        missed = [k for k, v in controls.items() if not v["rejected"]]
+        if missed:
+            raise AssertionError(f"{label} passed planted faults: {missed}")
+
+    check("train_check", False, _faults(points.capacity))
+    check("train_check_cached", True, _cached_faults())
 
 
-def phase_profile_train(cfg, st, grid, batch, bank):
-    """One more training step under torch.profiler."""
+def phase_profile_train(cfg, st, grid, batch, bank, staged):
+    """One more training step and one more cached step under
+    torch.profiler."""
     import torch
     from hybridneuralrendering_tpu_torch.train import step as TT
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     profile("train", lambda: TT.train_step(st, grid, batch, bank, cfg,
                                            generator=gen))
+    profile("train_cached", lambda: TT.train_step(
+        st, grid, batch, bank, cfg, generator=gen, img_feat_staged=staged))
 
 
 def main(argv=None) -> int:
@@ -1141,6 +1402,7 @@ def main(argv=None) -> int:
     sel = phase_kernels(cfg)
     adam = phase_kernels_train()
     chain = phase_kernels_chain(config.train_config())
+    scan = phase_kernels_scan()
     points, grid, params = phase_scene(cfg)
     requests, outs, serve_launches = phase_serve(cfg, points, grid, params)
     grid_c = cpu(grid)
@@ -1148,15 +1410,18 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(cfg, points, grid, params, requests[1])
     tcfg = config.train_config()
-    st, batch, bank, train_launches, seg = phase_train(tcfg, points, grid)
+    st, batch, bank, train_launches, seg, train_ms = phase_train(
+        tcfg, points, grid)
+    st, staged, cached_launches = phase_train_cached(tcfg, st, grid, bank,
+                                                     train_ms)
     phase_train_check(tcfg, points, grid, grid_c, params)
     if args.profile:
-        phase_profile_train(tcfg, st, grid, batch, bank)
+        phase_profile_train(tcfg, st, grid, batch, bank, staged)
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
     launches = {k: serve_launches[k] + train_launches[k]
-                for k in serve_launches}
+                + cached_launches[k] for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 
     def row(name, replaces, m):
@@ -1170,7 +1435,8 @@ def main(argv=None) -> int:
         row("k_smallest", "hybridneuralrendering_tpu/ops/pallas_select.py:41",
             sel),
         row("segment_sum", "tools/pallas_gather.py:68", seg),
-        row("adam_table", "tools/pallas_adam.py:61", adam)]
+        row("adam_table", "tools/pallas_adam.py:61", adam),
+        row("cumsum_rows", "tools/pallas_scan.py:50", scan)]
     chain_src = {"fwd": "tools/pallas_shading.py:201",
                  "bwd": "tools/pallas_shading.py:217",
                  "dw": "tools/pallas_shading.py:249"}

@@ -74,9 +74,12 @@ class PointsConfig:
 class AggregatorConfig:
     """The viewmlp shading network + hybrid image-feature fusion.
 
-    The port's eval render reads the shading and fusion knobs; the training
-    knobs (drop, blur head, dedup, remat, chunks, fused VJP) are carried so
-    that presets compare field by field, and come into use with training."""
+    The port reads the shading, fusion and training knobs: drop, the
+    unique-row gather (dedup_gather, dedup_uncached, renderer.render) and
+    the cached maps' reading (staged_materialize, fusion.image_fusion).
+    The knobs of unported variants (remat, chunks, fused VJP, learnable
+    blur) are carried so that presets compare field by field, and raise
+    where they are read (aggregator._check_supported)."""
 
     which_agg_model: str = "viewmlp"
     agg_distance_kernel: str = "linear"
@@ -243,8 +246,8 @@ class LossConfig:
 @dataclass(frozen=True)
 class OptimConfig:
     """Two Adams: network parameters at `lr`, point attributes at `plr`,
-    both under the `lr_policy` schedule.  The pyramid-cache knobs are
-    carried for preset equality; the port's step runs the CNN every step."""
+    both under the `lr_policy` schedule.  The pyramid-cache knobs set the
+    burst schedule (train/pyramid_cache.in_burst, burst_begins)."""
 
     lr: float = 0.0005        # network params
     plr: float = 0.002        # neural-point params

@@ -240,6 +240,7 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
           sampled_dir, sampled_conf, pnt_mask, sample_loc, sample_loc_w,
           sample_ray_dirs, vsize,
           img_feat_n: Optional[torch.Tensor] = None,
+          img_feat_staged=None,
           sample_loc_i_n: Optional[torch.Tensor] = None,
           delta_viewdir_n: Optional[torch.Tensor] = None,
           frame_weight_n: Optional[torch.Tensor] = None,
@@ -248,8 +249,9 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
           train: bool = False) -> AggOutput:
     """Shade all [R, SR] samples from their K gathered neighbours.
 
-    img_feat_n [V, H, W, 45] pyramid features of the nearest views;
-    sample_loc_i_n [V, R, SR, 2] reprojected pixel positions; drop_mask [R]
+    img_feat_n [V, H, W, 45] pyramid features of the nearest views, or
+    img_feat_staged = (images, (s1, s2, s3)) their cached stage maps
+    (fusion.image_fusion); sample_loc_i_n [V, R, SR, 2] reprojected pixel positions; drop_mask [R]
     bool, rays whose image features are dropped (read only when `train`)."""
     _check_supported(cfg, train)
     f32 = sampled_xyz.dtype
@@ -305,7 +307,8 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
         merged = fusion.image_fusion(params, cfg, color_feature, img_feat_n,
                                      sample_loc_i_n, delta_viewdir_n,
                                      frame_weight_n, view_mask,
-                                     drop_mask if train else None)
+                                     drop_mask if train else None,
+                                     img_feat_staged)
     color_feature_mix = fusion.mixup(params, cfg, color_feature, merged)
     rgb = raw2color(mlp.mlp_apply(params["color_final"], color_feature_mix,
                                   cfg.act_type), cfg.act_super)

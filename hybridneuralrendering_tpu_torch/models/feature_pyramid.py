@@ -3,12 +3,15 @@
 
 Three stride-2 conv stages with x2 channel expansion over each nearby view,
 upsampled back to full resolution and concatenated with the RGB: a
-45-channel per-pixel map.  NHWC throughout, as in the JAX package.
+45-channel per-pixel map.  NHWC throughout, as in the JAX package.  The
+pyramid-cached training step keeps the pre-upsample stage maps per view
+(train/pyramid_cache.py) and reads them through `materialize` or
+`gather_staged`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -55,3 +58,63 @@ def apply(params: Dict, images: torch.Tensor, act: str = "leaky_relu",
     return torch.cat([img, mlp.bilinear_resize(s1, H, W),
                       mlp.bilinear_resize(s2, H, W),
                       mlp.bilinear_resize(s3, H, W)], dim=-1)
+
+
+def materialize(images: torch.Tensor, stages: Sequence[torch.Tensor],
+                pad_to: int = 64,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Cached stage maps -> the full-resolution map [V, H, W, pad_to-multiple]
+    (JAX feature_pyramid.materialize): the RGB and the three stage maps
+    upsampled as `apply` does, in `dtype` (images' when None), zero-padded
+    to a multiple of pad_to channels."""
+    V, H, W, _ = images.shape
+    td = images.dtype if dtype is None else dtype
+    parts = [images.to(td)] + [mlp.bilinear_resize(s.to(td), H, W)
+                               for s in stages]
+    feat = torch.cat(parts, dim=-1)
+    pad = (-feat.shape[-1]) % pad_to
+    if pad:
+        feat = torch.cat([feat, feat.new_zeros(feat.shape[:-1] + (pad,))],
+                         dim=-1)
+    return feat
+
+
+def _bilinear_gather(stage: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+                     H: int, W: int) -> torch.Tensor:
+    """stage [V, h, w, C] sampled at full-resolution integer pixels (py, px)
+    [V, ...] as bilinear_resize(stage, H, W) would give them: half-pixel
+    centres, src = (dst + 0.5) * (h / H) - 0.5, edges clamped.  Float32
+    weights, so a bf16 stage gives a float32 result, as in JAX."""
+    V, h, w, _ = stage.shape
+    sy = (py.to(torch.float32) + 0.5) * (h / H) - 0.5
+    sx = (px.to(torch.float32) + 0.5) * (w / W) - 0.5
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    wy = (sy - y0)[..., None]
+    wx = (sx - x0)[..., None]
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    x1i = torch.clamp(x0i + 1, 0, w - 1)
+    y0i = torch.clamp(y0i, 0, h - 1)
+    x0i = torch.clamp(x0i, 0, w - 1)
+    vidx = torch.arange(V, device=stage.device).reshape(
+        (V,) + (1,) * (py.dim() - 1))
+    top = stage[vidx, y0i, x0i] * (1 - wx) + stage[vidx, y0i, x1i] * wx
+    bot = stage[vidx, y1i, x0i] * (1 - wx) + stage[vidx, y1i, x1i] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def gather_staged(images: torch.Tensor, stages: Sequence[torch.Tensor],
+                  py: torch.Tensor, px: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-sample features from cached stage maps (JAX
+    feature_pyramid.gather_staged): images [V, H, W, 3], py / px [V, ...]
+    integer pixels inside the image -> [V, ..., 45], the RGB in `dtype` and
+    the three bilinear samples in float32."""
+    V, H, W, _ = images.shape
+    td = images.dtype if dtype is None else dtype
+    vidx = torch.arange(V, device=images.device).reshape(
+        (V,) + (1,) * (py.dim() - 1))
+    parts = [images.to(td)[vidx, py, px]]
+    parts += [_bilinear_gather(s.to(td), py, px, H, W) for s in stages]
+    return torch.cat(parts, dim=-1)

@@ -11,12 +11,12 @@ port).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from hybridneuralrendering_tpu_torch.config import AggregatorConfig
-from hybridneuralrendering_tpu_torch.models import mlp
+from hybridneuralrendering_tpu_torch.models import feature_pyramid, mlp
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 
 
@@ -27,30 +27,55 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
                  delta_viewdir_n: Optional[torch.Tensor],
                  frame_weight_n: Optional[torch.Tensor] = None,
                  view_mask: Optional[torch.Tensor] = None,
-                 drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 drop_mask: Optional[torch.Tensor] = None,
+                 img_feat_staged: Optional[Tuple] = None) -> torch.Tensor:
     """Merged per-sample image feature [R, SR, aux_c], zeros when the image
     branch is off.  img_feat_n [V, H, W, C]; sample_loc_i_n [V, R, SR, 2]
     pixel positions; delta_viewdir_n [V, R, SR, 3]; drop_mask [R] bool,
-    rays whose merged feature is zeroed (training only)."""
+    rays whose merged feature is zeroed (training only).
+
+    img_feat_staged = (images [V, H, W, 3], (s1, s2, s3)) are cached stage
+    maps (JAX fusion.py:36-60): with cfg.staged_materialize they are
+    upsampled to a full map (feature_pyramid.materialize) and read by the
+    flat row gather, otherwise sampled per sample (gather_staged).  A
+    cached map carries no gradient, so its gather records no backward."""
     f32 = color_feature.dtype
     aux_c = cfg.aux_feature_channels
-    if not (cfg.use_nearest > 0 and img_feat_n is not None):
+    has_img = img_feat_n is not None or img_feat_staged is not None
+    if not (cfg.use_nearest > 0 and has_img):
         return color_feature.new_zeros(color_feature.shape[:-1] + (aux_c,))
     if cfg.tradition_attention:
         raise NotImplementedError(
             "attention fusion (tradition_attention) is not ported yet")
-    V, H, W, C = img_feat_n.shape
+    chain_dt = torch.bfloat16 if cfg.pyramid_dtype == "bfloat16" else None
+    if img_feat_staged is not None and cfg.staged_materialize:
+        images_n, stages = img_feat_staged
+        img_feat_n = feature_pyramid.materialize(images_n, stages,
+                                                 dtype=chain_dt)
+        img_feat_staged = None
+    if img_feat_staged is not None:
+        images_n, stages = img_feat_staged
+        V, H, W, _ = images_n.shape
+    else:
+        V, H, W, C = img_feat_n.shape
     px = sample_loc_i_n[..., 0].to(torch.int32)                 # [V, R, SR]
     py = sample_loc_i_n[..., 1].to(torch.int32)
     valid = (px >= 0) & (px < W) & (py >= 0) & (py < H)
     if view_mask is not None:
         valid = valid & (view_mask > 0)[:, None, None]
-    # a flat row gather; off-image samples read row 0, are zeroed below,
-    # and their (zero) cotangent goes to row 0 (neural_points.gather_rows)
-    vidx = torch.arange(V, device=px.device)[:, None, None]
-    fid = torch.where(valid, (vidx * H + py) * W + px, -1)
-    img_feat = npts.gather_rows(img_feat_n.reshape(V * H * W, C),
-                                fid)[..., :aux_c]
+    if img_feat_staged is not None:
+        img_feat = feature_pyramid.gather_staged(
+            images_n, stages, torch.clamp(py, 0, H - 1).long(),
+            torch.clamp(px, 0, W - 1).long(), dtype=chain_dt)[..., :aux_c]
+    else:
+        # a flat row gather; off-image samples read row 0, are zeroed
+        # below, and their (zero) cotangent goes to row 0
+        # (neural_points.gather_rows; a cached map requires no gradient,
+        # so autograd records no backward for it)
+        vidx = torch.arange(V, device=px.device)[:, None, None]
+        fid = torch.where(valid, (vidx * H + py) * W + px, -1)
+        img_feat = npts.gather_rows(img_feat_n.reshape(V * H * W, C),
+                                    fid)[..., :aux_c]
     img_feat = img_feat * valid[..., None].to(f32)
 
     parts = [img_feat, color_feature[None]]

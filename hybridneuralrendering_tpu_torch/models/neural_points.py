@@ -3,7 +3,9 @@
 A fixed-capacity cloud: all five per-point attributes live stacked in one
 table [N, table_width] (xyz | embedding | conf | color | dirs | zero pad),
 live points marked by `mask`.  The render gathers rows of the table for the
-[R, SR, K] neighbour ids; under autograd the gather's backward sorts the
+[R, SR, K] neighbour ids, directly or (the pyramid-cached training step)
+through a compact table of the unique rows, ranked by the cumsum_rows
+kernel (ops/scan.py); under autograd the gather's backward sorts the
 cotangent rows by id and reduces them with the segment-sum kernel
 (ops/segment_sum.py).
 """
@@ -19,6 +21,7 @@ from torch.profiler import record_function
 
 from hybridneuralrendering_tpu_torch.config import PointsConfig
 from hybridneuralrendering_tpu_torch.device import resolve
+from hybridneuralrendering_tpu_torch.ops.scan import cumsum_rows
 from hybridneuralrendering_tpu_torch.ops.segment_sum import segment_sum
 
 ATTR_ORDER = ("xyz", "embedding", "conf", "color", "dirs")
@@ -152,9 +155,45 @@ def segment_ends(si: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(si, ids, right=True, out_int32=True) - 1
 
 
+def dedup_gather(table: torch.Tensor, idx: torch.Tensor,
+                 u_cap: int) -> torch.Tensor:
+    """table[max(idx, 0)] through a compact table of the unique rows (JAX:
+    neural_points._dedup_gather_impl).  One stable sort of the flat ids;
+    the unique ids are ranked by the int32 scan of their first-slot flags
+    (cumsum_rows); the min(u_cap, m) first unique rows are gathered once
+    into a compact table and expanded to the m slots by rank.  When a step
+    touches more than that many unique ids, the direct gather table[idx]
+    runs instead (JAX picks the branch with lax.cond).  Either way every
+    row is a copy, so the result equals table[max(idx, 0)] bit for bit.
+
+    Choosing the branch reads the unique count on the host: one
+    synchronisation per call (its cost: PERF.md)."""
+    flat = torch.clamp(idx.reshape(-1), min=0).to(torch.int32)
+    m = flat.shape[0]
+    u_cap = min(int(u_cap), m)
+    out_shape = tuple(idx.shape) + (table.shape[-1],)
+    if u_cap <= 0:
+        return table[flat.long()].reshape(out_shape)
+    si, order = torch.sort(flat, stable=True)
+    is_new = torch.ones(m, dtype=torch.int32, device=flat.device)
+    is_new[1:] = si[1:] != si[:-1]
+    uid_sorted = (cumsum_rows(is_new) - 1).long()           # [m] rank
+    if int(uid_sorted[-1]) >= u_cap:                        # host sync
+        return table[flat.long()].reshape(out_shape)
+    # cid[u] = the point id of unique row u (every slot of a segment writes
+    # the same id); ranks past the unique count keep id 0, as in JAX
+    cid = torch.zeros(u_cap, dtype=torch.long, device=flat.device)
+    cid[uid_sorted] = si.long()
+    compact = table[cid]                                    # [u_cap, C]
+    uid = torch.empty_like(uid_sorted).scatter_(0, order, uid_sorted)
+    return compact[uid].reshape(out_shape)
+
+
 class _GatherRows(torch.autograd.Function):
     """table [N, C] -> table[max(idx, 0)] with a sort-based backward (JAX:
-    neural_points._gather_rows, which the caller hands clamped ids).
+    neural_points._gather_rows, which the caller hands clamped ids, and
+    _gather_rows_dedup, whose backward is the same).  With `dedup` > 0 the
+    forward runs dedup_gather(table, idx, dedup).
 
     Backward: one stable sort of the flat ids gives the sorted ids and the
     permutation; the cotangent rows are permuted into id order, the
@@ -170,9 +209,11 @@ class _GatherRows(torch.autograd.Function):
     set the kernel's time."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, dedup):
         ctx.save_for_backward(idx)
         ctx.n = table.shape[0]
+        if dedup:
+            return dedup_gather(table, idx, dedup)
         return table[torch.clamp(idx, min=0)]
 
     @staticmethod
@@ -187,22 +228,25 @@ class _GatherRows(torch.autograd.Function):
                 torch.where(empty, n, flat_i).to(torch.int32), stable=True)
             grad = segment_sum(flat_g[order], segment_ends(si, n), n)
             grad[0] += torch.where(empty[:, None], flat_g, 0.0).sum(dim=0)
-        return grad.to(g.dtype), None
+        return grad.to(g.dtype), None, None
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                dedup: int = 0) -> torch.Tensor:
     """table[idx] for ids >= 0, row 0 for ids < 0; differentiable in the
-    table through the segment-sum kernel."""
-    return _GatherRows.apply(table, idx)
+    table through the segment-sum kernel.  `dedup` > 0 gathers through a
+    compact table of at most that many unique rows (dedup_gather)."""
+    return _GatherRows.apply(table, idx, int(dedup))
 
 
-def gather(points: NeuralPoints, sample_pidx: torch.Tensor) -> SampledPoints:
+def gather(points: NeuralPoints, sample_pidx: torch.Tensor,
+           dedup: int = 0) -> SampledPoints:
     """Rows of the point table for neighbour ids [R, SR, K]; empty slots
     (-1) read row 0 and are masked downstream by pnt_mask.  One row gather
-    of the stacked table (gather_rows), then a split.  Frozen attributes
-    are detached after the gather, so their lanes of the table gradient are
-    exact zeros."""
-    out = gather_rows(points.table, sample_pidx.long())
+    of the stacked table (gather_rows; through the unique rows when
+    `dedup` > 0), then a split.  Frozen attributes are detached after the
+    gather, so their lanes of the table gradient are exact zeros."""
+    out = gather_rows(points.table, sample_pidx.long(), dedup)
     parts = torch.split(
         out, list(attr_widths(points.feature_dim)) + [
             out.shape[-1] - sum(attr_widths(points.feature_dim))],

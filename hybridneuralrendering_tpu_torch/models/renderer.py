@@ -48,10 +48,21 @@ def compute_image_features(params: Dict, cfg: Config,
                                      chain_dtype=_chain_dtype(cfg))
 
 
+def compute_image_feature_stages(params: Dict, cfg: Config,
+                                 images_nearest: torch.Tensor):
+    """[V, H, W, 3] -> the pre-upsample stage maps (s1, s2, s3) of the
+    nearest views (in pyramid_dtype): the form the pyramid cache keeps."""
+    with record_function("render.pyramid"):
+        return feature_pyramid.apply_stages(
+            params["aggregator"]["pyramid"], images_nearest,
+            cfg.agg.act_type, chain_dtype=_chain_dtype(cfg))
+
+
 def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
            batch: Dict, cfg: Config,
            img_feat_n: Optional[torch.Tensor] = None, train: bool = False,
-           noise: Optional[torch.Tensor] = None) -> Dict:
+           noise: Optional[torch.Tensor] = None,
+           img_feat_staged=None) -> Dict:
     """Render one batch of rays.  Deterministic unless `train`: then
     `noise` [R, z_depth_dim] in [0, 1) jitters the candidate samples and
     the rays of aggregator.drop_ray_mask lose their image features.
@@ -60,7 +71,12 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     the hybrid branch adds 'images_nearest' [V,H,W,3], 'c2w_nearest'
     [V,4,4], 'campos_nearest' [V,3], 'intrinsic_nearest' [3,3] and
     optionally 'frame_weight_nearest' [V] and 'view_mask' [V].
-    `img_feat_n` passes precomputed pyramid features of the nearest views."""
+    `img_feat_n` passes precomputed pyramid features of the nearest views,
+    `img_feat_staged` = (images_nearest, (s1, s2, s3)) cached stage maps
+    (train/pyramid_cache.py); with either the pyramid CNN does not run.
+    The point gather goes through its unique rows (cfg.agg.dedup_gather)
+    when stage maps are given or cfg.agg.dedup_uncached is set, as in
+    JAX renderer.py:87-93."""
     if "bg_ray" in batch:
         raise NotImplementedError("plane backgrounds (bg_ray) are not "
                                   "ported yet")
@@ -72,8 +88,10 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         qres = Q.query_points(grid, points.xyz, campos, raydir, qcfg,
                               rcfg.near_plane, rcfg.far_plane, noise=noise,
                               train=train)
+    dedup = acfg.dedup_gather if (img_feat_staged is not None
+                                  or acfg.dedup_uncached) else 0
     with record_function("render.gather"):
-        sampled = npts.gather(points, qres.sample_pidx)
+        sampled = npts.gather(points, qres.sample_pidx, dedup)
     with record_function("render.project"):
         sample_loc = w2pers(qres.sample_loc_w, batch["camrotc2w"], campos)
         sampled_xyz_pers = w2pers(sampled.xyz, batch["camrotc2w"], campos)
@@ -90,8 +108,8 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
                  for cn in batch["campos_nearest"]])           # [V,R,SR,3]
             frame_w_n = batch.get("frame_weight_nearest")
     if not hybrid:
-        img_feat_n = None
-    elif img_feat_n is None:
+        img_feat_n = img_feat_staged = None
+    elif img_feat_n is None and img_feat_staged is None:
         img_feat_n = compute_image_features(params, cfg,
                                             batch["images_nearest"])
 
@@ -110,7 +128,8 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             sampled_conf=sampled.conf, pnt_mask=qres.pnt_mask,
             sample_loc=sample_loc, sample_loc_w=qres.sample_loc_w,
             sample_ray_dirs=sample_ray_dirs, vsize=qcfg.query_vsize,
-            img_feat_n=img_feat_n, sample_loc_i_n=sample_loc_i_n,
+            img_feat_n=img_feat_n, img_feat_staged=img_feat_staged,
+            sample_loc_i_n=sample_loc_i_n,
             delta_viewdir_n=delta_vd_n, frame_weight_n=frame_w_n,
             view_mask=batch.get("view_mask"), drop_mask=drop_mask,
             train=train)

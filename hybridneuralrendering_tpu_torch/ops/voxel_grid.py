@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from hybridneuralrendering_tpu_torch.config import QuerierConfig
+from hybridneuralrendering_tpu_torch.ops.scan import cumsum_rows
 
 # coordinate of empty bucket slots: its distance overflows any radius limit
 XYZ_SENTINEL = 1e9
@@ -128,11 +129,13 @@ def _set_drop(target: torch.Tensor, idx, values) -> None:
 
 def _segments(keys: torch.Tensor, cap: int):
     """Stable sort of linear ids -> (sorted ids, source positions, head
-    flags, segment index, rank within segment) for the live (< cap) ids."""
+    flags, segment index, rank within segment) for the live (< cap) ids.
+    The segment index is the int32 rank scan of the head flags (the
+    cumsum_rows kernel on the card)."""
     skeys, order = torch.sort(keys, stable=True)
     valid = skeys < cap
     head = torch.cat([valid[:1], (skeys[1:] != skeys[:-1]) & valid[1:]])
-    seg_idx = torch.cumsum(head, dim=0) - 1
+    seg_idx = cumsum_rows(head.to(torch.int32)).long() - 1
     pos = torch.arange(keys.shape[0], device=keys.device)
     seg_start = torch.cummax(torch.where(head, pos, -1), dim=0).values
     return skeys, order, valid, head, seg_idx, pos - seg_start

@@ -1,13 +1,16 @@
 """One training step (JAX: hybridneuralrendering_tpu/train/step.py,
-`train_step` without the pyramid cache).
+`train_step`).
 
 render (train mode: jittered candidates, image-feature drop) -> blur-bank
 degradation of the predicted colours -> masked losses with the frame
 weight -> backward -> two Adams: the point table through the Adam kernel
 (ops/adam.py) at `plr`, the network parameters at `lr` through
-torch._foreach_* operations that repeat optax's arithmetic.  The pyramid
-CNN runs inside every step, as in the JAX package's uncached (CNN-burst)
-step.
+torch._foreach_* operations that repeat optax's arithmetic.  Without
+`img_feat_staged` the pyramid CNN runs inside the step (the uncached,
+CNN-burst step); with it the step reads cached stage maps
+(train/pyramid_cache.py), the CNN's gradient is zero, and both Adams still
+run over every leaf, as optax does: after an uncached step the CNN moves
+on a cached step by its first moment alone.
 
 The step updates the state's tensors in place and returns the state.
 Float32 convolutions run without TF32 (device.no_tf32), as in serving.
@@ -43,11 +46,12 @@ def device_batch(batch: Dict) -> Dict:
 def forward_with_blur(params: Dict, points: npts.NeuralPoints,
                       grid: PointGrid, batch: Dict, cfg: Config,
                       blur_kernels: Optional[torch.Tensor], train: bool,
-                      noise: Optional[torch.Tensor] = None) -> Dict:
+                      noise: Optional[torch.Tensor] = None,
+                      img_feat_staged=None) -> Dict:
     """Render, then (in training) degrade the predicted colours by the
     best bank kernel per patch."""
     out = renderer.render(params, points, grid, batch, cfg, train=train,
-                          noise=noise)
+                          noise=noise, img_feat_staged=img_feat_staged)
     if train:
         if cfg.agg.learnable_blur_kernel:
             raise NotImplementedError("the learnable blur kernel is not "
@@ -63,10 +67,11 @@ def forward_with_blur(params: Dict, points: npts.NeuralPoints,
 
 def loss_fn(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             batch: Dict, cfg: Config, blur_kernels: Optional[torch.Tensor],
-            noise: Optional[torch.Tensor] = None
+            noise: Optional[torch.Tensor] = None, img_feat_staged=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     out = forward_with_blur(params, points, grid, batch, cfg, blur_kernels,
-                            train=True, noise=noise)
+                            train=True, noise=noise,
+                            img_feat_staged=img_feat_staged)
     fw = batch.get("frame_weight") if cfg.loss.use_frame_weight else None
     total, items = losses_mod.compute_losses(out, batch["gt_image"],
                                              cfg.loss, fw)
@@ -85,13 +90,15 @@ def _noise(batch: Dict, cfg: Config, generator, noise):
 def loss_and_grads(state: TrainState, grid: PointGrid, batch: Dict,
                    blur_kernels: Optional[torch.Tensor], cfg: Config,
                    generator: Optional[torch.Generator] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None,
+                   img_feat_staged=None):
     """The training loss of `state` on `batch` and its gradients.
 
     Returns (items, grads of the network parameters (the params' nesting),
     grad of the point table or None when no attribute trains).  `noise`
     [R, z_depth_dim] in [0, 1) jitters the candidates; when None it is
-    drawn from `generator`."""
+    drawn from `generator`.  `img_feat_staged` = (images_nearest,
+    (s1, s2, s3)) makes it a cached step."""
     batch = device_batch(batch)
     noise = _noise(batch, cfg, generator, noise)
     params = tree_map(lambda t: t.detach().requires_grad_(True),
@@ -103,7 +110,7 @@ def loss_and_grads(state: TrainState, grid: PointGrid, batch: Dict,
     with no_tf32():
         with record_function("train.forward"):
             total, items = loss_fn(params, points, grid, batch, cfg,
-                                   blur_kernels, noise)
+                                   blur_kernels, noise, img_feat_staged)
         with record_function("train.backward"):
             total.backward()
     g_net = tree_map(lambda t: t.grad if t.grad is not None
@@ -167,10 +174,14 @@ def apply_updates(state: TrainState, g_net: Dict,
 def train_step(state: TrainState, grid: PointGrid, batch: Dict,
                blur_kernels: Optional[torch.Tensor], cfg: Config,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None
+               noise: Optional[torch.Tensor] = None,
+               img_feat_staged=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One forward, one backward, both Adams.  Returns (state, loss
-    items); the state's tensors are updated in place."""
+    items); the state's tensors are updated in place.  With
+    `img_feat_staged` (PyramidCache.get_stack's maps and the images) it is
+    the cached step."""
     items, g_net, g_table = loss_and_grads(state, grid, batch, blur_kernels,
-                                           cfg, generator, noise)
+                                           cfg, generator, noise,
+                                           img_feat_staged)
     return apply_updates(state, g_net, g_table, cfg), items

@@ -25,10 +25,9 @@ from hybridneuralrendering_tpu_torch.core import rays as trays
 from hybridneuralrendering_tpu_torch.io import from_jax
 from hybridneuralrendering_tpu_torch.models import feature_pyramid as tfp
 from hybridneuralrendering_tpu_torch.models import mlp as tmlp
-from torch_port_common import numpy_params
+from torch_port_common import REORDERED, numpy_params
 
 EXACT = dict(rtol=1e-6, atol=1e-7)
-REORDERED = dict(rtol=1e-5, atol=1e-6)
 
 
 def rng(seed=0):

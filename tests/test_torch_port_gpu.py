@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against their
 plain PyTorch versions (the shading chain within
-ops/shading_chain.tolerance, a relative L2 error), and a render and a
-training step on the card against the same on the CPU.  They skip where
-torch.cuda.is_available() is false.
+ops/shading_chain.tolerance, a relative L2 error; the row scan bit for bit
+on int32 and within ops/scan.tolerance on float32), the voxel grid, a
+render and a training step (uncached and cached) on the card against the
+same on the CPU.  They skip where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -20,9 +21,12 @@ from hybridneuralrendering_tpu_torch.data import synthetic
 from hybridneuralrendering_tpu_torch.models import blur, renderer
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.ops import adam as TA
+from hybridneuralrendering_tpu_torch.ops import scan as TSCAN
 from hybridneuralrendering_tpu_torch.ops import segment_sum as TSS
 from hybridneuralrendering_tpu_torch.ops import shading_chain as TSC
 from hybridneuralrendering_tpu_torch.ops import select as TS
+from hybridneuralrendering_tpu_torch.ops import voxel_grid as TVG
+from hybridneuralrendering_tpu_torch.train import pyramid_cache as TPC
 from hybridneuralrendering_tpu_torch.train import state as tstate
 from hybridneuralrendering_tpu_torch.train import step as tstep
 
@@ -328,3 +332,138 @@ def test_shading_chain_kernels_refuse_layers_too_wide(cuda, F, dtype):
     with pytest.raises(RuntimeError, match="chain_fwd"):
         TSC.chain_forward(layout, w, b, x["emb"], x["dists"], x["extra"])
     assert TSC.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (602_112,), (16_200_000,), (1,), (4_096,), (4_097,), (1_048_576 + 5,),
+    (602_112, 64), (1, 64), (257, 3), (5_000, 45), (300, 130)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_cumsum_rows_kernel_matches_plain(cuda, shape, dtype):
+    """int32 0/1 flags (the ranks' input) and signed integers bit for bit;
+    float32 normal rows within ops/scan.tolerance and integer-valued rows
+    (every partial sum exact) bit for bit; an exclusive scan is rejected.
+    Shapes from the main path and ragged ones: not a multiple of the
+    4,096-element or 256-row tile, more than 256 tiles (a carry across
+    scan chunks), widths not a multiple of 32 columns."""
+    g = torch.Generator(device=cuda).manual_seed(len(shape) * 7 + shape[0])
+    if dtype == "int32":
+        flags = (torch.rand(shape, generator=g, device=cuda) < 0.1).int()
+        flags.view(-1)[0] = 1          # a rank scan's first flag is set
+        signed = torch.randint(-1000, 1000, shape, generator=g, device=cuda,
+                               dtype=torch.int32)
+        cases = [(flags, None), (signed, None)]
+    else:
+        x = torch.randn(shape, generator=g, device=cuda)
+        q = _integer_rows(cuda, shape[0], shape[1] if len(shape) > 1 else 1,
+                          seed=3).reshape(shape)
+        cases = [(x, TSCAN.tolerance(x)), (q, None)]
+    for x, tol in cases:
+        before = TSCAN.cumsum_rows.launches
+        got = TSCAN.cumsum_rows(x)
+        want = TSCAN.cumsum_rows_plain(x)
+        torch.cuda.synchronize()
+        assert TSCAN.cumsum_rows.launches == before + 1
+        assert got.dtype == x.dtype and got.shape == x.shape
+        exclusive = got - x
+        if tol is None:
+            assert torch.equal(got, want)
+            assert not torch.equal(exclusive, want)
+        else:
+            err = (got.double() - want.double()).abs()
+            assert (err <= tol).all(), float((err - tol).max())
+            assert not ((exclusive.double() - want.double()).abs()
+                        <= tol).all()
+
+
+@pytest.mark.gpu
+def test_cumsum_rows_kernel_is_deterministic_and_launches_nothing_empty(cuda):
+    x = torch.randn(602_112, 64, device=cuda)
+    assert torch.equal(TSCAN.cumsum_rows(x), TSCAN.cumsum_rows(x))
+    before = TSCAN.cumsum_rows.launches
+    assert TSCAN.cumsum_rows(torch.zeros(0, 64, device=cuda)).shape == (0, 64)
+    assert TSCAN.cumsum_rows.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num", [1_500, 60_000])
+def test_build_grid_on_card_equals_cpu(cuda, num):
+    """tiny_test's grid, every table bit for bit; the card's build ranks its
+    segments through the row-scan kernel, twice with supervoxels.  At
+    60,000 points the supervoxel build ranks 1.6M keys (more than 256
+    scan tiles) and overflows the node capacity."""
+    cfg = TC.tiny_test()
+    a = synthetic.scene_arrays(cfg, num, 0)
+    mask = torch.ones(len(a["xyz"]), dtype=torch.bool)
+    grids = {}
+    for dev in (cuda, torch.device("cpu")):
+        geom = TVG.compute_grid_geometry(a["xyz"], mask.numpy(), cfg.querier,
+                                         device=dev)
+        before = TSCAN.cumsum_rows.launches
+        grids[dev.type] = TVG.build_grid(torch.as_tensor(a["xyz"],
+                                                         device=dev),
+                                         mask.to(dev), geom, cfg.querier)
+        launched = TSCAN.cumsum_rows.launches - before
+        assert launched == (2 if cfg.querier.supervoxel else 1) * (
+            dev.type == "cuda")
+    for name in grids["cpu"]._fields:
+        ref, got = getattr(grids["cpu"], name), getattr(grids["cuda"], name)
+        if torch.is_tensor(ref):
+            got = got.cpu()
+            if ref.dtype == torch.float32:   # id lanes hold int32 bits
+                ref, got = ref.view(torch.int32), got.view(torch.int32)
+            assert torch.equal(got, ref), name
+
+
+@pytest.mark.gpu
+def test_cached_train_step_on_card_matches_cpu(cuda):
+    """tiny_test (float32 chains and maps): an uncached step, then a cached
+    step from PyramidCache maps, on the card and on the CPU from one state.
+    The cached step launches one K-min, one segment sum (no pyramid map
+    gradient), one table Adam, each chain kernel once and one row scan (the
+    dedup ranks).  Loss items and gradients agree as in
+    test_train_step_on_card_matches_cpu; the CNN's gradient is zero."""
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                               use_frame_weight=True))
+    counters = {"k_smallest": TS.k_smallest, "segment_sum": TSS.segment_sum,
+                "adam_table": TA.adam_table,
+                "cumsum_rows": TSCAN.cumsum_rows}
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        st = tstate.create_train_state(params, points, cfg, device=dev)
+        batch = synthetic.make_synthetic_batch(cfg, device=dev)
+        bank = torch.as_tensor(blur.generate_kernel_bank(cfg.blur),
+                               device=dev)
+        noise = torch.rand((cfg.sampling.rays_per_batch,
+                            cfg.querier.z_depth_dim),
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+        st, _ = tstep.train_step(st, grid, batch, bank, cfg, noise=noise)
+        cache = TPC.PyramidCache(cfg, dtype=torch.float32)
+        views = batch["images_nearest"]
+        staged = (views, cache.get_stack(st.params, views,
+                                         range(len(views))))
+        before = {k: f.launches for k, f in counters.items()}
+        chain_before = dict(TSC.LAUNCHES)
+        items, g_net, g_table = tstep.loss_and_grads(
+            st, grid, batch, bank, cfg, noise=noise, img_feat_staged=staged)
+        tstep.apply_updates(st, g_net, g_table, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: f.launches - before[k]
+                    for k, f in counters.items()} == dict.fromkeys(counters,
+                                                                   1)
+            assert {k: v - chain_before[k] for k, v in
+                    TSC.LAUNCHES.items()} == dict.fromkeys(TSC.LAUNCHES, 1)
+        assert not any(bool(g.any()) for g in tstate.tree_leaves(
+            g_net["aggregator"]["pyramid"]))
+        res[dev.type] = (items, g_table, torch.cat([
+            x.reshape(-1) for x in tstate.tree_leaves(g_net)]))
+    (ki, kg, kn), (ci, cg, cn) = res["cuda"], res["cpu"]
+    for k, v in ci.items():
+        torch.testing.assert_close(ki[k].cpu(), v, rtol=1e-4, atol=1e-6)
+    for got, ref in ((kg, cg), (kn, cn)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
+                                   atol=float(1e-5 * ref.abs().max()))

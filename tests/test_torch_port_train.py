@@ -63,6 +63,7 @@ from hybridneuralrendering_tpu_torch.models import neural_points as tnpts
 from hybridneuralrendering_tpu_torch.models import renderer as trenderer
 from hybridneuralrendering_tpu_torch.ops import adam as tadam
 from hybridneuralrendering_tpu_torch.ops import build as tbuild
+from hybridneuralrendering_tpu_torch.ops import scan as tscan
 from hybridneuralrendering_tpu_torch.ops import segment_sum as tseg
 from hybridneuralrendering_tpu_torch.train import state as tstate
 from hybridneuralrendering_tpu_torch.train import step as tstep
@@ -149,7 +150,8 @@ def test_segment_ends_match_jax_construction():
     np.testing.assert_array_equal(n(got), end_pos)
 
 
-@pytest.mark.parametrize("kind", ["entry_point", "segment_sum", "adam_table"])
+@pytest.mark.parametrize("kind", ["entry_point", "segment_sum", "adam_table",
+                                  "cumsum_rows"])
 def test_kernel_wrappers_never_fall_back(kind):
     """Only a CPU tensor takes the plain version: any other device raises,
     and asking for the card on a machine without one raises too."""
@@ -158,6 +160,11 @@ def test_kernel_wrappers_never_fall_back(kind):
         with pytest.raises(ValueError):
             tseg.segment_sum(meta, torch.empty(8, dtype=torch.int32,
                                                device="meta"), 8)
+    elif kind == "cumsum_rows":
+        for dtype in (torch.float32, torch.int32):
+            with pytest.raises(ValueError):
+                tscan.cumsum_rows(torch.empty((8, 64), dtype=dtype,
+                                              device="meta"))
     elif kind == "adam_table":
         s = tadam.AdamScalars(0.9, 0.999, 0.1, 0.001, 0.1, 0.001, -1e-3,
                               1e-8)

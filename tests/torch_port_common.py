@@ -24,6 +24,9 @@ from hybridneuralrendering_tpu_torch.io import from_jax
 from hybridneuralrendering_tpu_torch.ops import voxel_grid as TVG
 
 CPU = "cpu"
+# where the two frameworks sum in another order (cumsum, matmul, conv,
+# resize): float32 rtol 1e-5 / atol 1e-6
+REORDERED = dict(rtol=1e-5, atol=1e-6)
 NUM_POINTS = 1500
 NUM_RAYS = 96
 # the batch keys renderer.render reads

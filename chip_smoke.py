@@ -7,14 +7,16 @@ Phases, each printing one JSON progress line:
   2. build       every CUDA kernel of the port, one nvcc per source, together;
   3. kernels     each kernel against its plain PyTorch version on the card at
                  the main path's shapes, with the tolerance it holds, times,
-                 bound and the time of one PyTorch library call;
+                 bound and the time of one PyTorch library call, and the
+                 kernel's time over the library's and over the bound;
                  the shading chain's forward at a serving chunk's and a
                  training step's rows and its two backward kernels at a
                  step's, with a planted fault, a bitwise repeat and the old
                  per-layer bf16 chain as a control the comparisons reject
                  and as yardstick; the row scan at float32 [602,112, 64]
                  and int32 [602,112] and [16,200,000], with an exclusive
-                 scan as the planted fault;
+                 scan as the planted fault (the int32 ones also timed as a
+                 CUDA graph of calls: device time without the host's);
   4. scene       the 600k-point serve_config scene, grid and random
                  full-width parameters, built on the card (two row-scan
                  launches: the grid's and the supervoxels' segments);
@@ -98,6 +100,15 @@ def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
+def log_kernel(name: str, row: dict) -> None:
+    """One kernels-phase row, with the kernel's time over the library
+    call's (where there is one) and over its bound."""
+    lib = row.get("library_ms")
+    log("kernels", kernel=name, **row,
+        kernel_over_library=row["kernel_ms"] / lib if lib else None,
+        kernel_over_bound=row["kernel_ms"] / row["bound_ms"])
+
+
 def _deadline(signum, frame):
     raise TimeoutError(f"chip_smoke passed its {DEADLINE_S} s deadline")
 
@@ -111,6 +122,30 @@ def cuda_ms(fn, iters: int = 20) -> float:
     t0.record()
     for _ in range(iters):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of fn per call: iters calls captured in one CUDA graph
+    and replayed, so the host's time to issue them is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
@@ -222,7 +257,7 @@ def phase_kernels(cfg):
             library_ms=cuda_ms(lambda: torch.topk(d, k, dim=1,
                                                   largest=False)),
             bound_ms=bound, bound_by=by)
-        log("kernels", kernel="k_smallest", **row)
+        log_kernel("k_smallest", row)
         rows[(S, C, k)] = row
     return rows[main_shape]
 
@@ -248,8 +283,9 @@ def segment_sum_row(sg, end_pos, n, label):
     """The segment-sum kernel against its plain version on id-sorted rows
     sg [M, C] with inclusive segment ends end_pos [n]:
       - sg itself within the kernel's float32 summation bound
-        (ops/segment_sum.tolerance: (L//4 + L%4 + 3) * 2**-24 * sum|rows|
-        for a segment of L rows);
+        (ops/segment_sum.tolerance: (ceil(min(L, 128) / 4) + 3 + [P > 1]
+        * (ceil(P / 8) + 2)) * 2**-24 * sum|rows| for a segment of L rows
+        in P row tiles of 128);
       - integer rows with the same segments bit for bit; a planted fault
         (the first row of the longest segment counted twice) must fail
         that comparison;
@@ -289,7 +325,8 @@ def segment_sum_row(sg, end_pos, n, label):
     row = dict(
         shape=[M, C, n], ids=label, rows_in_segments=used,
         touched_ids=int((lens > 0).sum()), max_segment=int(lens.max()),
-        tolerance="(L//4+L%4+3)*2^-24*sum|rows|; integer rows bitwise",
+        tolerance="(ceil(min(L,128)/4)+3+[P>1](ceil(P/8)+2))*2^-24"
+                  "*sum|rows|; integer rows bitwise",
         max_abs_err=float(err.max()),
         max_err_over_tolerance=float((err / tol.clamp(min=1e-30)).max()),
         integer_rows_bitwise=True, planted_fault_rejected=True,
@@ -299,7 +336,7 @@ def segment_sum_row(sg, end_pos, n, label):
         library_ms=cuda_ms(lambda: torch.zeros(
             n, C, device=sg.device).index_add_(0, ids, sg[:used])),
         bound_ms=bound, bound_by=by)
-    log("kernels", kernel="segment_sum", **row)
+    log_kernel("segment_sum", row)
     return row
 
 
@@ -363,7 +400,7 @@ def phase_kernels_train():
         plain_ms=cuda_ms(lambda: A.adam_table_plain(plain[0], g, plain[1],
                                                     plain[2], s)),
         library_ms=cuda_ms(lib.step), bound_ms=bound, bound_by=by)
-    log("kernels", kernel="adam_table", **adam)
+    log_kernel("adam_table", adam)
     return adam
 
 
@@ -415,6 +452,15 @@ def scan_row(x, label, iters=10):
     bound, by = _bound(2 * M * F * 4, M * F)
     slow = F > 1 and M > 10 ** 5      # torch's outer-dim scans: ~0.2 s each
     lib_kw = {} if x.dtype == torch.float32 else {"dtype": torch.int32}
+    if x.dtype == torch.int32 and F == 1:
+        # device time alone (a CUDA graph of the calls): where a call's
+        # host time exceeds its device time, kernel_ms reads the host
+        graphs = dict(
+            kernel_graph_ms=graph_ms(lambda: SC.cumsum_rows(x)),
+            library_graph_ms=graph_ms(lambda: torch.cumsum(x, dim=0,
+                                                           **lib_kw)))
+    else:
+        graphs = {}
     row = dict(
         shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
         input=label, tolerance=tolerance, max_abs_err=max_err,
@@ -426,8 +472,8 @@ def scan_row(x, label, iters=10):
                          else iters),
         library_ms=cuda_ms(lambda: torch.cumsum(x, dim=0, **lib_kw),
                            2 if slow else iters),
-        bound_ms=bound, bound_by=by)
-    log("kernels", kernel="cumsum_rows", **row)
+        bound_ms=bound, bound_by=by, **graphs)
+    log_kernel("cumsum_rows", row)
     return row
 
 
@@ -764,7 +810,7 @@ def phase_kernels_chain(cfg):
             yardstick_old_chain_ms=cuda_ms(lambda: old_chain(
                 chain, a, emb, dists, extras), iters),
             library_ms=None, bound_ms=bound, bound_by=by)
-        log("kernels", kernel="shading_chain_fwd", **row)
+        log_kernel("shading_chain_fwd", row)
         return row, (emb, dists, extras, extra, layout, w, b)
 
     rows["fwd"], _ = forward_row(serve_rows, "serve chunk")
@@ -855,7 +901,7 @@ def phase_kernels_chain(cfg):
         **dict(zip(("bound_ms", "bound_by"), _bf16_bound(
             packed.numel() * 4, flops))))
     for k in ("bwd", "dw"):
-        log("kernels", kernel=f"shading_chain_{k}", **rows[k])
+        log_kernel(f"shading_chain_{k}", rows[k])
     whole_bound, _ = _bf16_bound(raw_in + wbytes, 3 * flops)
     log("chain", rows=n, fused_fwd_bwd_ms=cuda_ms(fused_fwd_bwd, 5),
         old_chain_fwd_bwd_ms=cuda_ms(old_fwd_bwd, 5),

@@ -17,8 +17,14 @@ import torch
 
 # shared library name -> its sources under csrc/
 KERNEL_LIBS = {"segment_sum": ["segment_sum.cu"]}
-# the kernel's interleaved partial sums per segment
-PARTIALS = 4
+# the kernel's order (csrc/segment_sum.cu): a segment is cut into pieces at
+# multiples of ROWS rows; a piece is summed in PARTIALS running sums (row
+# r into sum r % PARTIALS), and the pieces of a segment that crosses a tile
+# edge in FIXUP_WARPS sums (piece j into sum j % FIXUP_WARPS) added as a
+# tree
+ROWS, PARTIALS, FIXUP_WARPS = 128, 4, 8
+
+_launch = None
 
 
 def segment_sum_plain(sg: torch.Tensor, end_pos: torch.Tensor,
@@ -42,25 +48,36 @@ def tolerance(sg: torch.Tensor, end_pos: torch.Tensor,
               n: int) -> torch.Tensor:
     """[n, C] bound on |kernel - plain| per element.
 
-    The kernel adds a segment of L rows in PARTIALS interleaved running
-    sums, the longest of k = L // 4 + L % 4 rows, then combines them in two
-    levels: each row passes through at most k + 1 float32 roundings, each
-    of at most 2**-24 of a partial sum, and the plain version rounds once
-    more.  So |kernel - plain| <= (k + 3) * 2**-24 * sum(|rows|)."""
-    lens = torch.diff(end_pos.long(), prepend=end_pos.new_full((1,), -1))
-    k = lens // PARTIALS + lens % PARTIALS
-    return (k[:, None] + 3) * 2.0 ** -24 * segment_sum_plain(
+    A segment of L rows is cut into P pieces of at most m = min(L, ROWS)
+    rows.  Each piece is summed in PARTIALS running sums of at most
+    ceil(m / 4) rows and two levels that add them: ceil(m / 4) + 1
+    roundings.  When P > 1, each of the FIXUP_WARPS sums of pieces takes at
+    most ceil(P / 8) of them, and a tree of three levels adds those:
+    ceil(P / 8) + 2 roundings more.  Each rounding is at most 2**-24 of a
+    partial sum, the plain version rounds once more, and one more term
+    covers the second order.  So |kernel - plain| <= (depth + 2) * 2**-24 *
+    sum(|rows|)."""
+    ends = end_pos.long()
+    starts = torch.cat([ends.new_full((1,), -1), ends[:-1]]) + 1
+    lens = (ends + 1 - starts).clamp(min=0)
+    pieces = torch.where(lens > 0, ends // ROWS - starts // ROWS + 1, 0)
+    depth = (-(-lens.clamp(max=ROWS) // PARTIALS) + 1
+             + torch.where(pieces > 1, -(-pieces // FIXUP_WARPS) + 2, 0))
+    return (depth[:, None] + 2) * 2.0 ** -24 * segment_sum_plain(
         sg.abs(), end_pos, n)
 
 
 def _kernel():
-    from hybridneuralrendering_tpu_torch.ops.build import load_library
-    lib = load_library("segment_sum", KERNEL_LIBS["segment_sum"])
-    fn = lib.segment_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    global _launch
+    if _launch is None:
+        from hybridneuralrendering_tpu_torch.ops.build import load_library
+        lib = load_library("segment_sum", KERNEL_LIBS["segment_sum"])
+        fn = lib.segment_sum_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
 def segment_sum(sg: torch.Tensor, end_pos: torch.Tensor,
@@ -78,20 +95,26 @@ def segment_sum(sg: torch.Tensor, end_pos: torch.Tensor,
                         f" {end_pos.dtype}")
     if sg.device != end_pos.device:
         raise ValueError("sg and end_pos lie on different devices")
-    if sg.device.type == "cpu":
-        return segment_sum_plain(sg, end_pos, n)
-    if sg.device.type != "cuda":
+    if not sg.is_cuda:
+        if sg.device.type == "cpu":
+            return segment_sum_plain(sg, end_pos, n)
         raise ValueError(f"segment_sum runs on cpu or cuda, not {sg.device}")
     M, C = sg.shape
     if C < 1:
         raise ValueError("segment_sum needs at least one column")
+    if n * C > 2 ** 32:
+        raise ValueError(f"segment_sum writes at most 2**32 elements, not "
+                         f"{n} x {C}")
     sg = sg.contiguous()
     end_pos = end_pos.contiguous()
     out = torch.empty((n, C), dtype=torch.float32, device=sg.device)
-    with torch.cuda.device(sg.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(sg.data_ptr(), end_pos.data_ptr(), out.data_ptr(),
-                        M, C, n, stream)
+    # per row tile: the pieces of segments that cross its edges, and an id
+    scratch = torch.empty(-(-M // ROWS) * (2 * C + 1), dtype=torch.float32,
+                          device=sg.device)
+    dev = sg.get_device()
+    err = _kernel()(sg.data_ptr(), end_pos.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), M, C, n, dev,
+                    torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError "
                            f"{err}")

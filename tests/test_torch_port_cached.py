@@ -9,6 +9,10 @@ imported from tools/ as tools/test_pallas_scan.py does.  Tolerances:
   (block matmuls plus a float32 carry): |diff| <= 1e-5 * cumsum(|x|) per
   element, a bound on the sum, since random prefix sums pass near zero;
   int32 against np.cumsum exactly.
+- the row-scan kernel's float32 order for F == 1, modelled here in float32
+  torch ops (_scan_order_model): within ops/scan.tolerance of the float64
+  plain version on normal, cancelling and long inputs, and equal to it on
+  integer-valued ones.
 - the dedup gather copies rows: its forward equals JAX's and table[idx]
   bit for bit; its table gradient is the gather backward's, held to
   jax.grad at the training step's gradient tolerance (_close_grad).
@@ -92,6 +96,93 @@ def test_cumsum_rows_int32_exact(shape):
     got = tscan.cumsum_rows(t(x))
     assert got.dtype == torch.int32 and tuple(got.shape) == shape
     np.testing.assert_array_equal(n(got), np.cumsum(x, axis=0))
+
+
+def _kogge_stone(v):
+    """Inclusive scan over the last axis (32 lanes) as the kernel's
+    warp_inclusive adds: lane l += lane l - d for d = 1, 2, 4, 8, 16."""
+    for d in (1, 2, 4, 8, 16):
+        if d < v.shape[-1]:
+            v = torch.cat([v[..., :d], v[..., d:] + v[..., :-d]], dim=-1)
+    return v
+
+
+def _exclusive(incl):
+    return torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], -1)
+
+
+def _scan_totals_model(agg):
+    """scan_totals on the tile totals [nb]: a block scan (THREADS threads
+    in warps of 32; the warp totals scanned by one warp, then added to the
+    later warps' exclusive prefixes) per chunk of THREADS tiles, plus a
+    carry from chunk to chunk."""
+    T, nb = tscan.THREADS, agg.shape[0]
+    offs, carry = torch.empty(nb), torch.zeros(())
+    for t0 in range(0, nb, T):
+        v = torch.zeros(T)
+        v[:min(T, nb - t0)] = agg[t0:t0 + T]
+        incl = _kogge_stone(v.reshape(T // 32, 32))
+        excl = _exclusive(incl)
+        winc = _kogge_stone(incl[:, 31])
+        excl[1:] = winc[:-1, None] + excl[1:]
+        offs[t0:t0 + T] = (carry + excl.reshape(-1))[:min(T, nb - t0)]
+        carry = carry + winc[-1]
+    return offs
+
+
+def _scan_order_model(x):
+    """csrc/cumsum_rows.cu's float32 order for x [M] (F == 1), in float32
+    torch ops: tiles of THREADS * VECS * VEC elements; warp w of a tile owns
+    VECS * 32 consecutive vectors of VEC elements, step k's lane l vector
+    k * 32 + l; the prefixes inside a vector, a Kogge-Stone scan of the
+    vector totals over the lanes, a running sum over the steps and one over
+    the warps (tile_scan); the tile totals through scan_totals; and
+    y = ((tile offset + warp offset) + step base) + vector prefix."""
+    W, K, V = tscan.WARPS, tscan.VECS, tscan.VEC
+    M, tile = x.shape[0], tscan.tile_rows(1)
+    nb = -(-M // tile)
+    xp = torch.zeros(nb * tile)
+    xp[:M] = x
+    v = xp.reshape(nb, W, K, 32, V)
+    s = [v[..., 0]]
+    for j in range(1, V):
+        s.append(s[-1] + v[..., j])
+    incl = _kogge_stone(s[-1])
+    excl = _exclusive(incl)
+    run, base = torch.zeros(nb, W), torch.empty(nb, W, K, 32)
+    for k in range(K):
+        base[:, :, k] = run[..., None] + excl[:, :, k]
+        run = run + incl[:, :, k, 31]
+    acc, woff = torch.zeros(nb), torch.empty(nb, W)
+    for w in range(W):
+        woff[:, w] = acc
+        acc = acc + run[:, w]
+    off = _scan_totals_model(acc)[:, None] + woff
+    b = off[:, :, None, None] + base
+    return torch.stack([b + sj for sj in s], dim=-1).reshape(-1)[:M]
+
+
+@pytest.mark.parametrize("kind", ["normal", "cancelling", "carry_chunks"])
+def test_scan_order_model_within_tolerance(kind):
+    """The kernel's float32 order for F == 1, modelled on the CPU, within
+    ops/scan.tolerance of the float64 plain version; on integer values
+    (every partial sum exact) the model equals it.  carry_chunks has more
+    than THREADS tiles, so the tile sums cross scan_totals' chunks."""
+    rng = np.random.default_rng(21)
+    if kind == "normal":
+        x = rng.normal(size=50_001)
+    elif kind == "cancelling":
+        x = np.where(np.arange(70_000) % 2 == 0, 1e4, -1e4) + rng.normal(
+            size=70_000)
+    else:
+        x = rng.normal(size=tscan.THREADS * tscan.tile_rows(1) + 4_099)
+    x = t(x.astype(np.float32))
+    err = (_scan_order_model(x).double()
+           - tscan.cumsum_rows_plain(x).double()).abs()
+    tol = tscan.tolerance(x)
+    assert (err <= tol).all(), float((err / tol).max())
+    q = t(rng.integers(-8, 9, x.shape[0]).astype(np.float32))
+    assert torch.equal(_scan_order_model(q), tscan.cumsum_rows_plain(q))
 
 
 def test_cumsum_rows_refuses_other_types():

@@ -108,12 +108,22 @@ def _integer_rows(cuda, M, C, seed=1):
     (602_112, 64, 600_000, "random"), (1, 3, 5, "random"),
     (1, 64, 1, "random"), (0, 64, 100, "random"), (4_000, 3, 7, "random"),
     (50_000, 64, 1_000, "one_segment"), (20_000, 64, 600, "few_ids"),
-    (1_000, 130, 2_000, "random"), (30_000, 45, 9_000, "with_empty")])
+    (1_000, 130, 2_000, "random"), (30_000, 45, 9_000, "with_empty"),
+    (301_056, 45, 1_228_800, "pyramid_map"),
+    (602_112, 64, 600_000, "sixteen_ids"),
+    (40_000, 45, 3, "one_segment"), (40_000, 64, 3, "one_segment"),
+    (5_000, 45, 60, "tile_edges"), (5_000, 64, 60, "tile_edges")])
 def test_segment_sum_kernel_matches_plain(cuda, M, C, n, kind):
     """Normal rows within the kernel's float32 summation bound
-    (segment_sum.tolerance); integer rows bit for bit.  `with_empty` puts
-    a third of the rows after the last id, as the gather backward sorts
-    its empty slots."""
+    (segment_sum.tolerance); integer rows bit for bit; ten launches bit
+    for bit.  `with_empty` puts a third of the rows after the last id, as
+    the gather backward sorts its empty slots; `pyramid_map` and
+    `sixteen_ids` are the shapes of a step's pyramid-map backward (about
+    11k of 1.2M pixel ids touched, 45 columns) and the smoke's
+    duplicate-heavy case (16 ids, segments of ~38k rows); `one_segment` at
+    40,000 rows spans 313 row tiles of the kernel; `tile_edges` makes
+    segments of 128 and 64 rows in turn, so ends fall on tile edges and
+    next to them."""
     ids = None
     if kind == "one_segment":
         ids = torch.full((M,), n // 2, device=cuda)
@@ -122,6 +132,14 @@ def test_segment_sum_kernel_matches_plain(cuda, M, C, n, kind):
     elif kind == "with_empty":
         ids = torch.randint(0, n, (M,), device=cuda)
         ids[torch.rand(M, device=cuda) < 1 / 3] = n
+    elif kind == "pyramid_map":
+        touched = torch.sort(torch.randperm(n, device=cuda)[:11_368]).values
+        ids = touched[torch.randint(0, 11_368, (M,), device=cuda)]
+    elif kind == "sixteen_ids":
+        ids = torch.randint(0, 16, (M,), device=cuda) * 37_501
+    elif kind == "tile_edges":
+        lens = torch.tensor([128, 64], device=cuda).repeat(n // 2)
+        ids = torch.repeat_interleave(torch.arange(n, device=cuda), lens)[:M]
     sg, end_pos, _ = _segments(cuda, M, C, n, ids)
     before = TSS.segment_sum.launches
     got = TSS.segment_sum(sg, end_pos, n)
@@ -131,6 +149,8 @@ def test_segment_sum_kernel_matches_plain(cuda, M, C, n, kind):
     assert got.shape == (n, C)
     assert ((got - want).abs() <= TSS.tolerance(sg, end_pos, n)).all()
     assert torch.isfinite(got).all()
+    for _ in range(10):
+        assert torch.equal(TSS.segment_sum(sg, end_pos, n), got)
     sq = _integer_rows(cuda, M, C)
     got_q = TSS.segment_sum(sq, end_pos, n)
     want_q = TSS.segment_sum_plain(sq, end_pos, n)
@@ -337,15 +357,18 @@ def test_shading_chain_kernels_refuse_layers_too_wide(cuda, F, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [
     (602_112,), (16_200_000,), (1,), (4_096,), (4_097,), (1_048_576 + 5,),
-    (602_112, 64), (1, 64), (257, 3), (5_000, 45), (300, 130)])
+    (602_112, 64), (1, 64), (257, 3), (5_000, 45), (300, 130),
+    (8_191,), (8_192,), (8_193,), (32 * 8_192 + 1,), (33 * 8_192 + 1,)])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_cumsum_rows_kernel_matches_plain(cuda, shape, dtype):
     """int32 0/1 flags (the ranks' input) and signed integers bit for bit;
     float32 normal rows within ops/scan.tolerance and integer-valued rows
     (every partial sum exact) bit for bit; an exclusive scan is rejected.
-    Shapes from the main path and ragged ones: not a multiple of the
-    4,096-element or 256-row tile, more than 256 tiles (a carry across
-    scan chunks), widths not a multiple of 32 columns."""
+    Shapes from the main path and ragged ones: at and next to the edges of
+    the 8,192-element (F == 1) or 256-row tile, more than 256 tiles (a
+    carry across scan chunks), tiles whose look-back crosses a window of
+    32 predecessors (33 and 34 tiles; 16.2M has 1,978), widths not a
+    multiple of 32 columns."""
     g = torch.Generator(device=cuda).manual_seed(len(shape) * 7 + shape[0])
     if dtype == "int32":
         flags = (torch.rand(shape, generator=g, device=cuda) < 0.1).int()
@@ -374,6 +397,30 @@ def test_cumsum_rows_kernel_matches_plain(cuda, shape, dtype):
             assert (err <= tol).all(), float((err - tol).max())
             assert not ((exclusive.double() - want.double()).abs()
                         <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [602_112, 33 * 8_192 + 1])
+def test_cumsum_rows_lookback_state_resets(cuda, M):
+    """The int32 look-back's status words and ticket belong to one call:
+    back-to-back calls on different inputs, and calls on a second stream
+    while the first stream runs, each equal the plain version bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    xs = [(torch.rand(M, generator=g, device=cuda) < p).int()
+          for p in (0.1, 0.5, 0.9)]
+    xs.append(torch.randint(-1000, 1000, (M,), generator=g, device=cuda,
+                            dtype=torch.int32))
+    ys = [TSCAN.cumsum_rows(x) for x in xs[:2]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ys_side = [TSCAN.cumsum_rows(x) for x in xs[2:]]
+    ys.append(TSCAN.cumsum_rows(xs[0]))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for x, y in zip(xs[:2] + xs[2:] + xs[:1], ys[:2] + ys_side + ys[2:]):
+        assert torch.equal(y, TSCAN.cumsum_rows_plain(x))
 
 
 @pytest.mark.gpu

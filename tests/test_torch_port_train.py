@@ -30,6 +30,10 @@ imported from tools/ as tools/test_pallas_*.py do.  Tolerances:
   the gradient tolerance.
 - the pyramid map's gradient through the fusion: float32 rtol 1e-5 / atol
   1e-6 * max|g|; a bf16 map within one bf16 rounding (2**-7 relative).
+- the segment-sum kernel's order of float32 additions, modelled here in
+  float32 torch ops (_segment_sum_order_model): within
+  ops/segment_sum.tolerance of the float64 plain version on normal,
+  cancelling and long segments, and equal to it on integer rows.
 """
 
 import copy
@@ -139,6 +143,84 @@ def test_segment_sum_no_rows():
     end_pos = torch.full((10,), -1, dtype=torch.int32)
     got = tseg.segment_sum(torch.zeros((0, 64)), end_pos, 10)
     assert got.shape == (10, 64) and not got.any()
+
+
+def _segment_sum_order_model(sg, end_pos, n):
+    """csrc/segment_sum.cu's order of float32 additions, in float32 torch
+    ops: a segment is cut at multiples of ROWS rows (the row tiles); the
+    rows of a piece go to PARTIALS running sums by row index mod 4 (a
+    tile-relative slot, so a piece laid into a zero-padded [ROWS, C] tile
+    sums the same), added as (s0 + s1) + (s2 + s3); a segment of more than
+    one piece sums its pieces in FIXUP_WARPS running sums by piece index
+    mod 8, added as a tree of three levels."""
+    R, C = tseg.ROWS, sg.shape[1]
+    out = torch.zeros((n, C), dtype=torch.float32)
+    lo = 0
+    for p, e in enumerate(end_pos.tolist()):
+        hi = e + 1
+        if hi <= lo:
+            continue
+        first = lo // R
+        tiles = torch.zeros(((hi - 1) // R - first + 1) * R, C)
+        tiles[lo - first * R:hi - first * R] = sg[lo:hi]
+        tiles = tiles.reshape(-1, R, C)
+        acc = [torch.zeros(tiles.shape[0], C) for _ in range(tseg.PARTIALS)]
+        # the zero padding adds nothing: a one-piece segment walks its rows
+        slots = (range(R) if tiles.shape[0] > 1
+                 else range(lo - first * R, hi - first * R))
+        for i in slots:
+            acc[i % 4] = acc[i % 4] + tiles[:, i]
+        pieces = (acc[0] + acc[1]) + (acc[2] + acc[3])
+        if pieces.shape[0] == 1:
+            out[p] = pieces[0]
+        else:
+            w = [torch.zeros(C) for _ in range(tseg.FIXUP_WARPS)]
+            for j in range(pieces.shape[0]):
+                w[j % 8] = w[j % 8] + pieces[j]
+            out[p] = (((w[0] + w[1]) + (w[2] + w[3]))
+                      + ((w[4] + w[5]) + (w[6] + w[7])))
+        lo = hi
+    return out
+
+
+def _order_case(kind, rng):
+    """(ids [M], rows [M, C], n) for the order model's checks."""
+    if kind == "normal":
+        ids = rng.integers(0, 900, 6000)
+        return ids, rng.normal(size=(6000, 45)), 1000
+    if kind == "cancelling":
+        # +-1e4 in turn with noise of order 1: the sums are small, the
+        # partial sums large
+        M = 5000
+        ids = np.sort(rng.integers(0, 40, M))
+        big = np.where(np.arange(M) % 2 == 0, 1e4, -1e4)[:, None]
+        return ids, big + rng.normal(size=(M, 8)), 40
+    if kind == "one_segment_40k":
+        return (np.full(40_000, 3), rng.normal(size=(40_000, 4)) * 10.0 ** (
+            rng.integers(-3, 4, (40_000, 4))), 7)
+    # segments of 128 rows and of 64: every end on or next to a tile edge
+    ids = np.repeat(np.arange(20), [128, 64] * 10)
+    return ids, rng.normal(size=(ids.shape[0], 64)), 20
+
+
+@pytest.mark.parametrize("kind", ["normal", "cancelling", "one_segment_40k",
+                                  "tile_edges"])
+def test_segment_sum_order_model_within_tolerance(kind):
+    """The kernel's float32 order, modelled on the CPU, within the restated
+    ops/segment_sum.tolerance of the float64 plain version; on integer
+    rows (every partial sum exact) the model equals the plain version."""
+    rng = np.random.default_rng(11)
+    ids, rows, N = _order_case(kind, rng)
+    M, C = rows.shape
+    _, _, end_pos = _segment_case(rng, M, N, C, ids)
+    sg, ep = t(rows.astype(np.float32)), t(end_pos)
+    err = (_segment_sum_order_model(sg, ep, N).double()
+           - tseg.segment_sum_plain(sg, ep, N).double()).abs()
+    tol = tseg.tolerance(sg, ep, N)
+    assert (err <= tol).all(), float((err / tol.clamp(min=1e-30)).max())
+    q = t(rng.integers(-8, 9, (M, C)).astype(np.float32))
+    assert torch.equal(_segment_sum_order_model(q, ep, N),
+                       tseg.segment_sum_plain(q, ep, N))
 
 
 def test_segment_ends_match_jax_construction():

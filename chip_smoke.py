@@ -208,6 +208,30 @@ def phase_build():
             f.result()
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=build.BUILD_SECONDS)
+    logs = sorted(build.BUILD_DIR.glob("libshading_chain-*.log"),
+                  key=lambda p: p.stat().st_mtime)
+    log("ptxas", lib="shading_chain",
+        kernels=ptxas_report(logs[-1].read_text()) if logs else None)
+
+
+# entry-function names of csrc/shading_chain.cu, by a piece of their
+# mangled names
+PTXAS_NAMES = {"chain_hopILb0": "chain_fwd bf16", "chain_hopILb1":
+               "chain_bwd bf16", "chain_fwd_f32": "chain_fwd f32",
+               "chain_bwd_f32": "chain_bwd f32", "chain_dwI13": "chain_dw bf16",
+               "chain_dwIf": "chain_dw f32", "chain_reduce": "chain_reduce"}
+
+
+def ptxas_report(text):
+    """Each kernel's registers and spills from the `-Xptxas -v` output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = next((v for k, v in PTXAS_NAMES.items() if k in line),
+                        line.split("'")[1])
+        elif name and ("spill" in line or "Used" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def _select_inputs(S, C, gen):
@@ -709,6 +733,18 @@ def _bf16_bound(bytes_, ops):
     return _bound(bytes_, ops, BF16_OPS_PER_S)
 
 
+def _rates(ops, row):
+    """Achieved TFLOP/s of a chain kernel's products (ops at the real
+    widths) and their share of the bf16 peak, back to back (kernel_ms) and
+    on the device alone (kernel_graph_ms)."""
+    out = {}
+    for key, suffix in (("kernel_ms", ""), ("kernel_graph_ms", "_graph")):
+        tflops = ops / (row[key] * 1e-3) / 1e12
+        out["tflops" + suffix] = tflops
+        out["peak_share" + suffix] = tflops * 1e12 / BF16_OPS_PER_S
+    return out
+
+
 def _old_chain_grads(p, cfg, emb, dists, extras, dfeat, dalpha):
     """(feat, alpha) of old_chain and the gradients of
     sum(feat * dfeat) + sum(alpha * dalpha) in its inputs and parameters,
@@ -774,6 +810,7 @@ def phase_kernels_chain(cfg):
         want_f, want_a = SC.chain_plain(emb, dists, extra, chain, a, dt_name)
         planted, _ = SC.chain_forward(layout, w, b, emb, dists,
                                       extra.roll(1, dims=1).contiguous())
+        again = SC.chain_forward(layout, w, b, emb, dists, extra)
         old_f, old_a = old_chain(chain, a, emb, dists, extras)
         torch.cuda.synchronize()
         errs = {"feat": SC.rel_l2(feat, want_f),
@@ -789,6 +826,10 @@ def phase_kernels_chain(cfg):
             raise AssertionError(f"chain forward check passed a control "
                                  f"({label}): fault {fault}, old chain "
                                  f"{control}")
+        if not (torch.equal(feat, again[0]) and torch.equal(alpha, again[1])):
+            raise AssertionError(f"chain forward kernel is not "
+                                 f"bit-repeatable ({label})")
+        del again
         iters = 5 if n > 10 ** 6 else 10
         bytes_ = (n * (emb.shape[1] + dists.shape[1] + extra.shape[1]) * 4
                   + w.numel() * w.element_size() + b.numel() * 4
@@ -803,13 +844,17 @@ def phase_kernels_chain(cfg):
             planted_fault_rel_l2=fault["feat"],
             planted_fault_margin=over(fault),
             old_chain_rel_l2=control, old_chain_margin=over(control),
+            bitwise_repeatable=True,
             kernel_ms=cuda_ms(lambda: SC.chain_forward(
+                layout, w, b, emb, dists, extra), iters),
+            kernel_graph_ms=graph_ms(lambda: SC.chain_forward(
                 layout, w, b, emb, dists, extra), iters),
             plain_ms=cuda_ms(lambda: SC.chain_plain(emb, dists, extra, chain,
                                                     a, dt_name), iters),
             yardstick_old_chain_ms=cuda_ms(lambda: old_chain(
                 chain, a, emb, dists, extras), iters),
             library_ms=None, bound_ms=bound, bound_by=by)
+        row.update(_rates(_chain_ops(layout, n), row))
         log_kernel("shading_chain_fwd", row)
         return row, (emb, dists, extras, extra, layout, w, b)
 
@@ -888,6 +933,7 @@ def phase_kernels_chain(cfg):
         old_chain_rel_l2=control, old_chain_margin=over(control),
         bitwise_repeatable=True,
         kernel_ms=cuda_ms(lambda: SC.chain_backward(*args), 5),
+        kernel_graph_ms=graph_ms(lambda: SC.chain_backward(*args), 5),
         plain_ms=cuda_ms(lambda: SC.chain_backward_plain(
             emb, dists, extra, chain, a, dt_name, dfeat, dalpha), 5),
         library_ms=None,
@@ -900,6 +946,7 @@ def phase_kernels_chain(cfg):
         plain_ms=cuda_ms(dw_plain, 5), library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), _bf16_bound(
             packed.numel() * 4, flops))))
+    rows["bwd"].update(_rates(2 * flops, rows["bwd"]))
     for k in ("bwd", "dw"):
         log_kernel(f"shading_chain_{k}", rows[k])
     whole_bound, _ = _bf16_bound(raw_in + wbytes, 3 * flops)

@@ -4,7 +4,9 @@ with the positional encoding built inside, forward and backward.
 `fused_feat_alpha` is the port of the Pallas TPU kernel
 `tools/pallas_shading.py:fused_feat_alpha_pe` and its recompute VJP.  On
 CUDA tensors it launches the hand-written kernels of `csrc/shading_chain.cu`
-(`chain_fwd`; in the backward `chain_bwd` and `chain_dw`); on
+(`chain_fwd`; in the backward `chain_bwd` and `chain_dw`); in bf16 the
+first two read the weights as `stage_images`, each chunk laid out as the
+shared-memory image their `wgmma` products read.  On
 CPU tensors it runs `chain_plain` and `chain_backward_plain`, which follow
 the TPU kernel's arithmetic: the operands of every product are rounded to
 the compute type (bf16 or f32), products accumulate in f32, and bias, leaky
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -33,9 +36,12 @@ from hybridneuralrendering_tpu_torch.config import AggregatorConfig
 from hybridneuralrendering_tpu_torch.core.encoding import positional_encoding
 
 SLOPE = 0.01
-TILE = 64           # rows of a kernel tile (csrc/shading_chain.cu kT)
+TILE = 64           # rows of a db partial; the backward pads rows to it
 ALIGN = 16          # every padded width (one mma tile edge)
 CHUNK_ROWS = 4096   # rows of one chain_dw partial sum
+# the bf16 kernels' weight stages: CHUNK_K rows of K by a pass of WIDE or
+# NARROW output columns (csrc/shading_chain.cu hop::kChunkK, kWide, kNarrow)
+CHUNK_K, WIDE, NARROW = 64, 256, 32
 # shared library name -> its sources under csrc/
 KERNEL_LIBS = {"shading_chain": ["shading_chain.cu"]}
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -216,6 +222,67 @@ def nest_like(params: Dict, flat_layers: Sequence) -> Dict:
     for (k, _), _p in a + b + h:
         out.setdefault(k, []).append(next(it))
     return out
+
+
+def _passes(n: int) -> List[Tuple[int, int]]:
+    """(first column, width) of each pass of a product with n output
+    columns, in the bf16 kernels' order (csrc/shading_chain.cu
+    hop::npasses, pass_nw): one pass of NARROW columns (n <= NARROW) or of
+    WIDE, or the NARROW columns past WIDE first, then WIDE."""
+    if n <= NARROW:
+        return [(0, NARROW)]
+    if n <= WIDE:
+        return [(0, WIDE)]
+    return [(WIDE, NARROW), (0, WIDE)]
+
+
+def image_products(layout: ChainLayout) -> List[Tuple[LayerSlot, int, int,
+                                                      bool]]:
+    """(slot, K, N, transposed) of every product whose weights the bf16
+    kernels stream, in the order of their stage images: each layer's
+    forward product (B = W [kp, np]) in chain order, then the backward's
+    dX = G W^T (B = W^T [np, kp]) from the last layer to the first."""
+    return ([(s, s.kp, s.np, False) for s in layout.layers]
+            + [(s, s.np, s.kp, True) for s in reversed(layout.layers)])
+
+
+@functools.lru_cache(maxsize=16)
+def _image_index(layout: ChainLayout, device: torch.device) -> torch.Tensor:
+    """For every element of the stage images, its index in pack_chain's w
+    with one zero appended at wtot (the padding)."""
+    n = torch.arange(WIDE)[:, None]
+    k = torch.arange(CHUNK_K)[None, :]
+    # element (n, k) of a stage: row n of 128 bytes, its 16-byte units of 8
+    # k's XOR-swizzled by n % 8 (wgmma's 128-byte swizzle, K-major)
+    pos = n * CHUNK_K + ((k // 8) ^ (n % 8)) * 8 + k % 8
+    parts = []
+    for s, K, N, transposed in image_products(layout):
+        for n0, nw in _passes(N):
+            for k0 in range(0, K, CHUNK_K):
+                kk, nn = k0 + k, n0 + n[:nw]
+                src = s.woff + (nn * s.np + kk if transposed
+                                else kk * s.np + nn)
+                src = torch.where((kk < K) & (nn < N), src, layout.wtot)
+                img = torch.empty(nw * CHUNK_K, dtype=torch.long)
+                img[pos[:nw].reshape(-1)] = src.reshape(-1)
+                parts.append(img)
+    return torch.cat(parts).to(device)
+
+
+def stage_images(w: torch.Tensor, layout: ChainLayout) -> torch.Tensor:
+    """The weights as the bf16 kernels read them, from pack_chain's w: for
+    each product of image_products, each pass of _passes(N) and each chunk
+    of CHUNK_K rows of K, one stage image [nw, CHUNK_K] of B^T (K-major),
+    zero-padded, its 16-byte units swizzled as wgmma's 128-byte swizzle
+    reads them, so that the kernels copy a stage as one block."""
+    idx = _image_index(layout, w.device)
+    return torch.cat([w[:layout.wtot], w.new_zeros(1)])[idx]
+
+
+def _kernel_weights(layout: ChainLayout, w: torch.Tensor) -> torch.Tensor:
+    """What chain_fwd and chain_bwd take as `w`: the stage images in bf16,
+    pack_chain's w in float32."""
+    return stage_images(w, layout) if w.dtype == torch.bfloat16 else w
 
 
 # ------------------------------------------------------------ plain versions
@@ -417,8 +484,8 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_inputs(dt: torch.dtype, *tensors: torch.Tensor) -> None:
     """Devices, types and contiguity; the C functions refuse a chain their
-    tiles do not take (a layer over 256 columns, shared memory over the
-    card's), and _check raises that."""
+    tiles do not take (a layer over 256 columns, in bf16 a layer input over
+    288, shared memory over the card's), and _check raises that."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the chain kernels run on cuda, not {dev}")
@@ -444,10 +511,11 @@ def chain_forward(layout: ChainLayout, w: torch.Tensor, b: torch.Tensor,
     feat = torch.empty((n, layout.layers[layout.na + layout.nb - 1].nout),
                        device=emb.device)
     alpha = torch.empty((n, layout.layers[-1].nout), device=emb.device)
+    wk = _kernel_weights(layout, w)
     with torch.cuda.device(emb.device):
         err = _lib().chain_fwd_launch(
             _meta(layout), int(w.dtype == torch.bfloat16), emb.data_ptr(),
-            dists.data_ptr(), extra.data_ptr(), w.data_ptr(), b.data_ptr(),
+            dists.data_ptr(), extra.data_ptr(), wk.data_ptr(), b.data_ptr(),
             n, feat.data_ptr(), alpha.data_ptr(), _stream(emb))
     _check(err, "chain_fwd")
     LAUNCHES["shading_chain_fwd"] += 1
@@ -457,7 +525,8 @@ def chain_forward(layout: ChainLayout, w: torch.Tensor, b: torch.Tensor,
 def chain_backward(layout: ChainLayout, w, b, emb, dists, extra, dfeat,
                    dalpha):
     """chain_bwd on the card: (d_emb, d_dists, d_extra, A scratch, G
-    scratch, per-tile db partials) for rows padded to a multiple of TILE."""
+    scratch, db partials per TILE rows) for rows padded to a multiple of
+    TILE."""
     _check_inputs(w.dtype, emb, dists, extra, dfeat, dalpha, w, b)
     n = emb.shape[0]
     npad = _rup(n, TILE)
@@ -468,11 +537,12 @@ def chain_backward(layout: ChainLayout, w, b, emb, dists, extra, dfeat,
     d_emb = torch.empty_like(emb)
     d_dists = torch.empty_like(dists)
     d_extra = torch.empty_like(extra)
+    wk = _kernel_weights(layout, w)
     with torch.cuda.device(dev):
         err = _lib().chain_bwd_launch(
             _meta(layout), int(w.dtype == torch.bfloat16), emb.data_ptr(),
             dists.data_ptr(), extra.data_ptr(), dfeat.data_ptr(),
-            dalpha.data_ptr(), w.data_ptr(), b.data_ptr(), n,
+            dalpha.data_ptr(), wk.data_ptr(), b.data_ptr(), n,
             ascr.data_ptr(), gscr.data_ptr(), dbpart.data_ptr(),
             d_emb.data_ptr(), d_dists.data_ptr(), d_extra.data_ptr(),
             _stream(emb))

@@ -272,12 +272,19 @@ def _chain_case(cuda, F, ce, n, dtype, seed=0):
 @pytest.mark.parametrize("F,ce,n,dtype", [
     (256, 7, 3_000, "bfloat16"), (256, 7, 1_000, "float32"),
     (128, 0, 777, "bfloat16"), (128, 7, 130, "float32"),
-    (256, 7, 4_096 + 64 * 3, "bfloat16"), (128, 0, 64, "float32")])
+    (256, 7, 4_096 + 64 * 3, "bfloat16"), (128, 0, 64, "float32"),
+    (256, 7, 1, "bfloat16"), (256, 7, 127, "bfloat16"),
+    (256, 7, 128, "bfloat16"), (256, 7, 129, "bfloat16"),
+    (256, 7, 128 * 132 + 1, "bfloat16"),
+    (256, 7, 128 * 132 * 3 + 77, "bfloat16")])
 def test_shading_chain_kernels_match_plain(cuda, F, ce, n, dtype):
     """Forward and the two backward kernels against chain_plain and
     chain_backward_plain on the card, within ops/shading_chain.tolerance;
     ragged row counts (not a multiple of the 64-row tile or of the 4,096-row
-    dW chunk) and no extra columns included."""
+    dW chunk) and no extra columns included.  The bf16 kernels walk 128-row
+    tiles with at most one block per SM: less than a tile, one tile, a row
+    past it, one tile more than the 132 blocks of an H100, and three tiles
+    a block with a ragged last one."""
     cfg, params, x = _chain_case(cuda, F, ce, n, dtype)
     layout = TSC.chain_layout(params, cfg, 32, 6, ce)
     w, b = TSC.pack_chain(params, layout, TSC.COMPUTE_DTYPES[dtype])
@@ -304,6 +311,40 @@ def test_shading_chain_kernels_match_plain(cuda, F, ce, n, dtype):
     for got, ref in zip(got_g, TSC._layer_list(want[3])):
         assert TSC.rel_l2(got["w"], ref["w"]) <= bwd_tol
         assert TSC.rel_l2(got["b"], ref["b"]) <= bwd_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128 * 132 + 1, 20_000])
+def test_shading_chain_forward_is_bit_repeatable(cuda, n):
+    cfg, params, x = _chain_case(cuda, 256, 7, n, "bfloat16", seed=1)
+    layout = TSC.chain_layout(params, cfg, 32, 6, 7)
+    w, b = TSC.pack_chain(params, layout, torch.bfloat16)
+    args = (layout, w, b, x["emb"], x["dists"], x["extra"])
+    one, two = TSC.chain_forward(*args), TSC.chain_forward(*args)
+    for a, b_ in zip(one, two):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 20_000])
+def test_shading_chain_db_partials_sum_to_plain_db(cuda, n):
+    """chain_bwd's db partials (one row per 64 rows, what chain_dw reads),
+    summed over their rows, equal the plain version's db within the
+    gradient tolerance; rows past the padded count are never written."""
+    cfg, params, x = _chain_case(cuda, 256, 7, n, "bfloat16", seed=3)
+    layout = TSC.chain_layout(params, cfg, 32, 6, 7)
+    w, b = TSC.pack_chain(params, layout, torch.bfloat16)
+    *_, dbpart = TSC.chain_backward(layout, w, b, x["emb"], x["dists"],
+                                    x["extra"], x["dfeat"], x["dalpha"])
+    want = TSC.chain_backward_plain(x["emb"], x["dists"], x["extra"], params,
+                                    cfg, "bfloat16", x["dfeat"], x["dalpha"])
+    torch.cuda.synchronize()
+    assert dbpart.shape == (-(-n // 64), layout.btot)
+    db = dbpart.sum(0)
+    for s, ref in zip(layout.layers, TSC._layer_list(want[3])):
+        got = db[s.boff:s.boff + s.nout]
+        assert TSC.rel_l2(got, ref["b"]) <= TSC.tolerance("bfloat16", "grad")
+        assert not db[s.boff + s.nout:s.boff + s.np].any()
 
 
 @pytest.mark.gpu

@@ -249,6 +249,54 @@ def test_pack_chain_round_trip(case, dtype):
         assert s.kp % 16 == 0 and s.np % 16 == 0 and s.woff % 256 == 0
 
 
+def _stage_passes(n):
+    """The bf16 kernels' passes over n output columns, (first column,
+    width): 32 columns, 256, or the 32 past 256 and then the first 256."""
+    if n <= 32:
+        return [(0, 32)]
+    return [(0, 256)] if n <= 256 else [(256, 32), (0, 256)]
+
+
+@pytest.mark.parametrize("case", ["scannet_full", "tiny_test",
+                                  "two_layer_head", "raw_dists"])
+def test_stage_images_unswizzle_to_plain_layouts(case):
+    """stage_images, built on the CPU and un-swizzled by the hardware's
+    128-byte rule (the byte address 128 n + 2 k of element (n, k) of a
+    stage, its bits 4-6 XORed with bits 7-9), gives back product by product
+    the padded W [kp, np] of pack_chain (forward) and its W^T [np, kp]
+    (backward, last layer first), zeros in every padded row and column, and
+    nothing else.  tiny_test is ragged: block3's 135 inputs pad to 144, a
+    K tail of 16 in the last 64-row stage."""
+    c = CASES[case]
+    p = _torch(_inputs(c)["params"])
+    layout = SC.chain_layout(p, _cfg(c, "bfloat16"), c["de"], c["dd"],
+                             c["ce"])
+    w, _ = SC.pack_chain(p, layout, torch.bfloat16)
+    img = SC.stage_images(w, layout)
+    assert img.dtype == torch.bfloat16
+    n = torch.arange(256)[:, None]
+    k = torch.arange(64)[None, :]
+    addr = 128 * n + 2 * k
+    elem = (addr ^ (((addr >> 7) & 7) << 4)) // 2      # [256, 64]
+    plain = [(w[s.woff:s.woff + s.kp * s.np].view(s.kp, s.np), s)
+             for s in layout.layers]
+    products = ([(wp, s.kp, s.np) for wp, s in plain]
+                + [(wp.t(), s.np, s.kp) for wp, s in reversed(plain)])
+    off = 0
+    for want, K, N in products:
+        kpad = -(-K // 64) * 64
+        got = torch.full((kpad, 288), float("nan"))
+        for n0, nw in _stage_passes(N):
+            for k0 in range(0, K, 64):
+                stage = img[off:off + nw * 64].float()
+                off += nw * 64
+                got[k0:k0 + 64, n0:n0 + nw] = stage[elem[:nw]].t()
+        cover = max(n0 + nw for n0, nw in _stage_passes(N))
+        assert torch.equal(got[:K, :N], want.float())
+        assert not got[K:, :N].any() and not got[:, N:cover].any()
+    assert off == img.numel()
+
+
 def test_scannet_full_layout():
     """The packed layout at the scannet_full widths: padded input widths
     288, 256, 272 (256 + the 7 extra columns), 256, 256; 271,360

@@ -89,6 +89,9 @@ SCAN_RANK, SCAN_RANK_NEW = SEG_ROWS, SEG_TOUCHED + 1
 SCAN_GRID, SCAN_GRID_NEW = 27 * 600_000, 3_770_000
 # the train_check batch: 2x2 patches of 8x8 rays on the same scene
 CHECK_PATCHES, CHECK_PATCH_SIZE = 2, 8
+# the planted chain_dw fault drops the scratch's first rows: 64 of the
+# batch's 256 rays, SR * K rows each
+DW_FAULT_ROWS = 4_096
 # published H100 SXM peaks (dense): bytes/s of HBM3, float32 op/s outside
 # the tensor cores, bf16 op/s on them
 HBM_BYTES_PER_S = 3.35e12
@@ -218,8 +221,8 @@ def phase_build():
 # mangled names
 PTXAS_NAMES = {"chain_hopILb0": "chain_fwd bf16", "chain_hopILb1":
                "chain_bwd bf16", "chain_fwd_f32": "chain_fwd f32",
-               "chain_bwd_f32": "chain_bwd f32", "chain_dwI13": "chain_dw bf16",
-               "chain_dwIf": "chain_dw f32", "chain_reduce": "chain_reduce"}
+               "chain_bwd_f32": "chain_bwd f32", "dw_hop": "chain_dw bf16",
+               "chain_dw_f32": "chain_dw f32", "chain_reduce": "chain_reduce"}
 
 
 def ptxas_report(text):
@@ -921,13 +924,26 @@ def phase_kernels_chain(cfg):
                  @ gscr[:, s.goff:s.goff + s.np].float()
                  for s in layout.layers], dbpart.sum(0))
 
+    def dw_library():
+        # five cuBLAS calls (one bf16 product a layer, bf16 out), not one,
+        # and the db sum: a yardstick the port never calls
+        return ([torch.mm(ascr[:, s.aoff:s.aoff + s.kp].t(),
+                          gscr[:, s.goff:s.goff + s.np])
+                 for s in layout.layers], dbpart.sum(0))
+
     common = dict(rows="training step", tolerance={"grad": tol},
                   max_abs_err=max_err)
-    # Bounds count what the backward function needs: chain_bwd the
+    # Bounds count what each kernel's function needs.  chain_bwd: the
     # recompute and dX products (2x the forward's), reading the inputs,
-    # cotangents and weights and writing the input gradients; chain_dw the
-    # dW products (1x), writing every dW and db.  The A/G scratch and the
-    # chunk partials exist only in this design and are left out.
+    # cotangents and weights and writing the input gradients (the A/G
+    # scratch it writes exists only in this design and is left out).
+    # chain_dw: the dW products (1x) and reading its own inputs once, the
+    # A/G scratch and the db partials, and writing every dW and db; the
+    # split partials exist only in this design and are left out.
+    dw_in = scratch + dbpart.numel() * 4
+    dw_bound = dict(bound_bytes_ms=(dw_in + packed.numel() * 4)
+                    / HBM_BYTES_PER_S * 1e3,
+                    bound_ops_ms=flops / BF16_OPS_PER_S * 1e3)
     rows["bwd"] = dict(
         common, rel_l2=errs, margin=1 / over(errs),
         old_chain_rel_l2=control, old_chain_margin=over(control),
@@ -942,10 +958,18 @@ def phase_kernels_chain(cfg):
             2 * flops))))
     rows["dw"] = dict(
         common, kernel_ms=cuda_ms(lambda: SC.chain_dw(layout, ascr, gscr,
-                                                      dbpart), 5),
-        plain_ms=cuda_ms(dw_plain, 5), library_ms=None,
-        **dict(zip(("bound_ms", "bound_by"), _bf16_bound(
-            packed.numel() * 4, flops))))
+                                              dbpart), 5),
+        kernel_graph_ms=graph_ms(lambda: SC.chain_dw(layout, ascr, gscr,
+                                                     dbpart), 5),
+        plain_ms=cuda_ms(dw_plain, 5), library_ms=cuda_ms(dw_library, 5),
+        library="5 cuBLAS bf16 mm (one a layer) + dbpart.sum(0)",
+        **dw_bound, bound_ms=max(dw_bound.values()),
+        bound_by=("bytes" if dw_bound["bound_bytes_ms"]
+                  >= dw_bound["bound_ops_ms"] else "operations"))
+    for key, suffix in (("kernel_ms", ""), ("kernel_graph_ms", "_graph")):
+        rows["dw"]["input_tb_per_s" + suffix] = (
+            dw_in / (rows["dw"][key] * 1e-3) / 1e12)
+    rows["dw"].update(_rates(flops, rows["dw"]))
     rows["bwd"].update(_rates(2 * flops, rows["bwd"]))
     for k in ("bwd", "dw"):
         log_kernel(f"shading_chain_{k}", rows[k])
@@ -1215,8 +1239,7 @@ def _faults(table_rows):
     loses each id's last row (a boundary off by one), the K-min loses each
     sample's nearest neighbour, the table Adam runs with the next step's
     bias correction, the chain's forward reads block3's extra columns one
-    column off, the chain's dW reduction drops the first chunk of rows'
-    partial."""
+    column off, chain_dw drops the scratch's first DW_FAULT_ROWS rows."""
     import torch
     from hybridneuralrendering_tpu_torch.models import neural_points as npts
     from hybridneuralrendering_tpu_torch.ops import query
@@ -1251,9 +1274,9 @@ def _faults(table_rows):
                         extra.roll(1, dims=1).contiguous())
         return chain_forward
 
-    def drop_first_chunk(real):
+    def drop_first_rows(real):
         def chain_dw(layout, ascr, gscr, dbpart):
-            rows = SC.CHUNK_ROWS
+            rows = DW_FAULT_ROWS
             return real(layout, ascr[rows:], gscr[rows:],
                         dbpart[rows // SC.TILE:])
         return chain_dw
@@ -1278,7 +1301,7 @@ def _faults(table_rows):
                                            extra_off_by_one),
                                   "net_grad_rel_l2"),
             "shading_chain_dw": (_Planted(SC, "chain_dw",
-                                          drop_first_chunk),
+                                          drop_first_rows),
                                      "net_grad_rel_l2")}
 
 

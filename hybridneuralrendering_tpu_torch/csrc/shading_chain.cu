@@ -14,14 +14,17 @@
 // products accumulate in f32; bias, leaky ReLU and the positional encoding
 // are f32, as in the TPU kernel's `_mm`.
 //
-// What bounds them on an H100: operations.  At the scannet_full widths a
-// row costs 271,360 multiply-adds forward (block1 284->256->256, block3
+// What bounds them on an H100.  At the scannet_full widths a row costs
+// 271,360 multiply-adds forward (block1 284->256->256, block3
 // 263->256->256, head 256->1); at the bf16 tensor-core peak of 989 TFLOP/s
 // chain_fwd takes at least 1.726 ms for a serving chunk of 3,145,728 rows
 // and 0.330 ms for a step's 602,112, chain_bwd (the recompute and the dX
-// products, twice the forward's) 0.661 ms and chain_dw 0.330 ms.  The
-// forward's bytes (raw inputs in, feat f32 out: about 3.8 GB at 3.1M rows)
-// would take 1.13 ms.
+// products, twice the forward's) 0.661 ms: operations bound both (the
+// forward's bytes, raw inputs in and feat f32 out, about 3.8 GB at 3.1M
+// rows, would take 1.13 ms).  chain_dw is bound by bytes: its products
+// take 0.330 ms, but reading its inputs once, the bf16 A / G scratch
+// (1,328 + 1,040 columns, 2.852 GB at 602,112 rows) and the db partials
+// (39 MB), takes 0.863 ms at 3.35 TB/s.
 //
 // bf16 chain_fwd and chain_bwd (the scannet_full path), built for Hopper:
 //   persistent    a grid of at most one block per SM; block b takes the
@@ -87,22 +90,65 @@
 // loads (from device memory, at the head's bottom).  PERF.md has the times
 // by phase.  Each 128-row tile streams 592 KB of stage images
 // from L2 forward (1,152 KB backward), about 14.9 GB per serving chunk.
-// The backward's A / G scratch (about 2.85 GB at 602,112 rows, kept so that
-// chain_dw reads it as before) takes at least 0.85 ms at 3.35 TB/s, a floor
-// of this design.
+// Writing the backward's A / G scratch (2.852 GB at 602,112 rows) takes
+// chain_bwd at least 0.85 ms at 3.35 TB/s, and reading it back chain_dw as
+// much: a floor of this design.  The TPU kernel sums dW on chip instead
+// (its grid runs in order, VMEM carries the sums); on Hopper every
+// persistent block would need its own f32 copy of every dW, 1.1 MB, five
+// times an SM's shared memory, so the scratch stays and chain_dw reads it
+// once.
 //
-// chain_dw       dW_l = sum_rows A_l^T G_l in two passes.  The first takes
-//                one chunk of 4,096 rows and 128 columns of dW_l a block:
-//                rows of A_l and G_l stream through a shared-memory ring by
-//                cp.async, 64 rows a step, into mma.sync f32 accumulators
-//                that hold all the block's dW; each chunk's share of the
-//                per-64-row db partials too; into an f32 buffer [chunks, dW |
-//                db].  The second (chain_reduce) sums that buffer over chunks
-//                in a fixed order.
+// bf16 chain_dw (hop::dw_hop), a split-K GEMM dW_l = A_l^T G_l over the
+// rows, in two launches:
+//   plan          ops/shading_chain.dw_plan, from the shapes alone: an item
+//                 is 128 dW rows of one layer (its input columns; the last
+//                 slab of block1's 288 and block3's 272 is 32 and 16 rows),
+//                 all its columns, over one row split; 12 items a split at
+//                 scannet_full, 11 splits (132 items, one wave of an H100's
+//                 132 SMs).  The splits, not the card's SM count, fix every
+//                 sum's order: two launches give the same bits.
+//   persistent    a grid of at most one block per SM; block b takes items
+//                 b, b + grid, ...; items of one split and layer have
+//                 neighbouring indices, run side by side, and read the same
+//                 G rows at about the same time, so G's second and third
+//                 reads can come from L2.
+//   loads         one producer thread streams 64-row stages by TMA (2-D
+//                 tensor maps over A and G, 64 x 64 boxes, 128-byte swizzle,
+//                 encoded through the runtime's driver entry point): G's 256
+//                 columns (32 KB; the head's 64, zero-filled past the
+//                 scratch) then the item's 128 A columns (16 KB,
+//                 evict-first), into a ring of three 48 KB stages on full /
+//                 empty mbarriers; no block-wide barrier.  (Four stages, a
+//                 256-byte L2 promotion or A's boxes first each ran slower on
+//                 an H100.)  A slab's columns past its layer (the 32- and
+//                 16-row tails) read the next layer's, whose rows of the
+//                 product are dropped (both warpgroups run every item: a
+//                 branch on the warpgroup around the wgmmas made ptxas
+//                 serialize them).
+//   products      two consumer warpgroups, 64 dW rows each, all 256 (or 64)
+//                 columns in f32 registers for the whole item:
+//                 wgmma.mma_async m64n256k16 (m64n64k16 for the head's 16),
+//                 both operands MN-major from shared memory (the scratch row
+//                 is the reduction dimension), four k-steps a stage, the next
+//                 stage's issued before the previous one is waited for.
+//   db            the producer warpgroup's other three warps sum the split's
+//                 per-64-row db partials in row order, a share of the
+//                 columns per item.
+//   reduce        partial [splits, dW | db] (12.3 MB at 11 splits), summed
+//                 over the splits in order by chain_reduce.
+// What it still costs: each 64-row stage moves 528 KB from L2 into the
+// SMs for 303 KB of scratch (G is read once per 128 dW rows, the tails read
+// 128 A columns for 32 or 16, the head 64 G columns for 16), and items
+// that finish early (the head's) leave their SMs idle.  The tensor cores
+// cut, not round, each k-step's sum into the f32 accumulator, so dW's error
+// grows with a split's k-steps: about 6e-5 relative at 602,112 rows (3,424
+// k-steps), against about 5e-3 from the bf16 scratch itself.
 // float32 (the small test presets and shading_dtype="float32"): the first
 //                design, one 512-thread block per 64-row tile, the weights
 //                through a cp.async ring with a barrier per chunk, products
-//                on the CUDA cores through an f32 shared buffer.
+//                on the CUDA cores through an f32 shared buffer; chain_dw
+//                one chunk of 4,096 rows and 128 dW columns a block, then
+//                chain_reduce over the chunks.
 // No atomics: two launches give the same bits.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
@@ -110,6 +156,7 @@
 // hybridneuralrendering_tpu_torch/ops/shading_chain.py, which also computes
 // the packed layout that `meta` describes and the bf16 stage images.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,9 +170,8 @@ constexpr int kNB = 256;       // output columns per pass
 constexpr int kSkew = 8;       // extra elements per shared row
 constexpr int kMaxLayers = 16;
 constexpr int kRowsPerThread = kT * kNB / kThreads;  // f32 product: 32
-constexpr int kDwCols = 128;   // dW columns a chain_dw block computes
-constexpr int kDwRows = 64;    // rows of A and G a chain_dw step stages
-constexpr int kDwM = 288;      // dW rows a chain_dw pass holds
+constexpr int kDwCols = 128;   // dW columns a float32 chain_dw block computes
+constexpr int kF32ChunkRows = 4096;  // rows of a float32 chain_dw partial sum
 constexpr int kMaxSmem = 232448;
 constexpr float kSlope = 0.01f;
 
@@ -515,51 +561,8 @@ chain_bwd_f32(Chain ch, const float* __restrict__ emb,
 
 // ------------------------------------------------------ chain_dw, chain_reduce
 
-// Tensor-core primitives: ldmatrix (four 8x8 b16 tiles from shared memory,
-// lane l giving the row address of tile l / 8; .trans delivers them
-// transposed) and mma.sync m16n8k16 with bf16 operands and f32
-// accumulators, the fragment layouts of the PTX ISA.
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// A 16x16 bf16 tile of a column-major matrix at `tile` (leading dimension
-// ld) as the A operand (the transpose of a row-major tile), and two 16x8 B
-// operands from a row-major [k, n] tile.
-__device__ __forceinline__ void load_a_t(unsigned (&a)[4],
-                                         const __nv_bfloat16* tile, int ld) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4_t(a, tile + ((l & 7) + (l >> 4) * 8) * ld + ((l >> 3) & 1) * 8);
-}
-__device__ __forceinline__ void load_b(unsigned (&b)[4],
-                                       const __nv_bfloat16* tile, int ld) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4_t(b, tile + (l & 15) * ld + (l >> 4) * 8);
-}
-// Write a 16x16 f32 result (two m16n8 accumulators) at `out` (row-major,
-// leading dimension ld).
-__device__ __forceinline__ void store_acc(float* out, int ld,
-                                          const float (&d)[2][4]) {
-  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float* o = out + g * ld + h * 8 + 2 * t;
-    *reinterpret_cast<float2*>(o) = make_float2(d[h][0], d[h][1]);
-    *reinterpret_cast<float2*>(o + 8 * ld) = make_float2(d[h][2], d[h][3]);
-  }
 }
 
 // Which layer and which kDwCols columns of its dW a block computes.
@@ -576,88 +579,12 @@ __device__ bool dw_tile(const Chain& ch, int t, int* l, int* n0) {
   return false;
 }
 
-// One chunk of rows' share of dW[:, n0:n0+kDwCols] = A^T G (bf16): rows of
-// A and G stream through a shared-memory ring by cp.async, kDwRows rows a
-// step; warp w holds column tile w % 8 and row tiles w / 8 + 2 j of up to
-// kDwM rows of dW in f32 accumulators.
-__device__ void dw_product(const Chain& ch, const __nv_bfloat16* ascr,
-                           const __nv_bfloat16* gscr, const Layer& ly, int n0,
-                           long long lo, long long hi, float* out,
-                           __nv_bfloat16* ring) {
-  constexpr int kJ = kDwM / 16 / 2;  // row tiles a warp holds
-  constexpr int kAld = kDwM + kSkew, kGld = kDwCols + kSkew;
-  constexpr int kStage = kDwRows * (kAld + kGld);
-  const int warp = threadIdx.x / 32, ct = warp % 8, mbase = warp / 8;
-  const int nb = min(kDwCols, ly.np - n0);
-  const int steps = (int)((hi - lo) / kDwRows);
-  for (int mb = 0; mb < ly.kp; mb += kDwM) {
-    const int mrows = min(kDwM, ly.kp - mb);
-    auto issue = [&](int s) {
-      if (s < steps) {
-        __nv_bfloat16* st = ring + (s % kStages) * kStage;
-        const long long r0 = lo + (long long)s * kDwRows;
-        const int va = mrows / 8, vg = nb / 8;
-        for (int i = threadIdx.x; i < kDwRows * (va + vg); i += kThreads) {
-          const int r = i / (va + vg), v = i - r * (va + vg);
-          if (v < va)
-            cp_async16(st + r * kAld + v * 8,
-                       ascr + (r0 + r) * ch.atot + ly.aoff + mb + v * 8);
-          else
-            cp_async16(st + kDwRows * kAld + r * kGld + (v - va) * 8,
-                       gscr + (r0 + r) * ch.gtot + ly.goff + n0 +
-                           (v - va) * 8);
-        }
-      }
-      cp_async_commit();
-    };
-    float acc[kJ][2][4];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[j][e / 4][e % 4] = 0.f;
-    __syncthreads();
-    for (int s = 0; s < kStages - 1; ++s) issue(s);
-    for (int s = 0; s < steps; ++s) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      issue(s + kStages - 1);
-      const __nv_bfloat16* st = ring + (s % kStages) * kStage;
-      if (ct * 16 >= nb) continue;
-#pragma unroll
-      for (int kk = 0; kk < kDwRows; kk += 16) {
-        unsigned b[4];
-        load_b(b, st + kDwRows * kAld + kk * kGld + ct * 16, kGld);
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          const int mt = mbase + 2 * j;
-          if (mt * 16 < mrows) {
-            unsigned a[4];
-            load_a_t(a, st + kk * kAld + mt * 16, kAld);
-            mma_bf16(acc[j][0], a, b[0], b[1]);
-            mma_bf16(acc[j][1], a, b[2], b[3]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    if (ct * 16 < nb) {
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int mt = mbase + 2 * j;
-        if (mt * 16 < mrows)
-          store_acc(out + ly.woff + (size_t)(mb + mt * 16) * ly.np + n0 +
-                        ct * 16,
-                    ly.np, acc[j]);
-      }
-    }
-  }
-}
-
-// f32 (the small test presets only): a thread owns one column and every
-// eighth row of a 64-row slice of dW, straight from the scratch buffers.
+// f32 (the small test presets and shading_dtype="float32"): a thread owns
+// one column and every eighth row of a 64-row slice of dW, straight from the
+// scratch buffers.
 __device__ void dw_product(const Chain& ch, const float* ascr,
                            const float* gscr, const Layer& ly, int n0,
-                           long long lo, long long hi, float* out, float*) {
+                           long long lo, long long hi, float* out) {
   constexpr int kStride = kThreads / kDwCols;  // 4
   constexpr int kPer = 64 / kStride;
   const int tn = threadIdx.x % kDwCols, tm = threadIdx.x / kDwCols;
@@ -681,22 +608,13 @@ __device__ void dw_product(const Chain& ch, const float* ascr,
   }
 }
 
-template <typename Act>
-__host__ __device__ constexpr size_t dw_smem() {
-  return sizeof(Act) == 2
-             ? sizeof(Act) * kStages * kDwRows *
-                   (kDwM + kSkew + kDwCols + kSkew)
-             : 0;
-}
-
-// grid (dW column tiles + db tiles, chunks): partial[chunk] = this chunk's
-// dW | db.
-template <typename Act>
+// float32, grid (dW column tiles + db tiles, chunks): partial[chunk] = this
+// chunk's dW | db.
 __global__ void __launch_bounds__(kThreads)
-chain_dw(Chain ch, const Act* __restrict__ ascr, const Act* __restrict__ gscr,
-         const float* __restrict__ dbpart, long long npad, int chunk_rows,
-         int w_tiles, float* __restrict__ partial) {
-  extern __shared__ __align__(128) unsigned char smem[];
+chain_dw_f32(Chain ch, const float* __restrict__ ascr,
+             const float* __restrict__ gscr, const float* __restrict__ dbpart,
+             long long npad, int chunk_rows, int w_tiles,
+             float* __restrict__ partial) {
   const long long lo = (long long)blockIdx.y * chunk_rows;
   const long long hi = min(npad, lo + chunk_rows);
   float* out = partial + (size_t)blockIdx.y * (ch.wtot + ch.btot);
@@ -704,8 +622,7 @@ chain_dw(Chain ch, const Act* __restrict__ ascr, const Act* __restrict__ gscr,
   if (t < w_tiles) {
     int l, n0;
     if (dw_tile(ch, t, &l, &n0))
-      dw_product(ch, ascr, gscr, ch.layer[l], n0, lo, hi, out,
-                 reinterpret_cast<Act*>(smem));
+      dw_product(ch, ascr, gscr, ch.layer[l], n0, lo, hi, out);
     return;
   }
   const int c = (t - w_tiles) * kThreads + threadIdx.x;
@@ -719,7 +636,7 @@ chain_dw(Chain ch, const Act* __restrict__ ascr, const Act* __restrict__ gscr,
 __global__ void __launch_bounds__(kThreads)
 chain_reduce(const float* __restrict__ partial, int chunks, long long width,
              float* __restrict__ out) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= width) return;
   float sum = 0.f;
   for (int k = 0; k < chunks; ++k) sum += partial[k * width + c];
@@ -940,9 +857,21 @@ __device__ __forceinline__ uint64_t sw128(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The accumulator operands of an m64n256 wgmma (128 f32 a thread) and of
-// an m64n32 one (16), and the instruction with scale-d from operand `s`
-// (0: d = A B, the registers' previous values unread; 1: d += A B).
+// The descriptor of an MN-major operand with the 128-byte swizzle (chain_dw:
+// both operands have the reduction dimension K outermost): K rows of 128
+// bytes (64 bf16 of M or N), 8-row groups 1,024 bytes apart (SBO), the next
+// 64 columns of M or N `lbo` bytes on (LBO).  A k-step of 16 moves the start
+// by 16 rows, 2,048 bytes.
+__device__ __forceinline__ uint64_t mn128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The accumulator operands of an m64n256 wgmma (128 f32 a thread), of an
+// m64n64 one (32) and of an m64n32 one (16), and the instruction with
+// scale-d from operand `s` (0: d = A B, the registers' previous values
+// unread; 1: d += A B) and both operands' transpose flags from the
+// immediate `t` (0: K-major; 1: MN-major).
 #define D128                                                          \
   "{"                                                                 \
   "%0, %1, %2, %3, %4, %5, %6, %7, " \
@@ -961,12 +890,18 @@ __device__ __forceinline__ uint64_t sw128(uint32_t addr) {
   "%104, %105, %106, %107, %108, %109, %110, %111, " \
   "%112, %113, %114, %115, %116, %117, %118, %119, " \
   "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define D32                                                           \
+  "{"                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
 #define D16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define WGMMA(shape, d, a, b, s)                                          \
+#define WGMMA(shape, d, a, b, s, t)                                       \
   "{\n.reg .pred p;\nsetp.ne.b32 p, " s ", 0;\n"                          \
   "wgmma.mma_async.sync.aligned." shape ".f32.bf16.bf16 " d ", " a ", " b \
-  ", p, 1, 1, 0, 0;\n}\n"
+  ", p, 1, 1, " t ", " t ";\n}\n"
 #define F8(i)                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -975,40 +910,59 @@ __device__ __forceinline__ uint64_t sw128(uint32_t addr) {
       "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
 
 // d[64 rows, 256] += A[64, 16] B[16, 256]
+template <int T = 0>
 __device__ __forceinline__ void mma_n256(float (&d)[128], uint64_t da,
                                          uint64_t db) {
-  asm volatile(WGMMA("m64n256k16", D128, "%128", "%129", "%130")
+  asm volatile(WGMMA("m64n256k16", D128, "%128", "%129", "%130", "%131")
                : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
                  F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112),
                  F8(120)
-               : "l"(da), "l"(db), "r"(1));
+               : "l"(da), "l"(db), "r"(1), "n"(T));
 }
 // d = A[64, 16] B[16, 256], d written only: the registers' previous values
 // are no input, so whatever wrote them last does not hold the wgmma
 // pipeline back.
+template <int T = 0>
 __device__ __forceinline__ void mma_n256_first(float (&d)[128], uint64_t da,
                                                uint64_t db) {
-  asm volatile(WGMMA("m64n256k16", D128, "%128", "%129", "%130")
+  asm volatile(WGMMA("m64n256k16", D128, "%128", "%129", "%130", "%131")
                : W8(0), W8(8), W8(16), W8(24), W8(32), W8(40), W8(48), W8(56),
                  W8(64), W8(72), W8(80), W8(88), W8(96), W8(104), W8(112),
                  W8(120)
-               : "l"(da), "l"(db), "r"(0));
+               : "l"(da), "l"(db), "r"(0), "n"(T));
+}
+// The same for 64 columns: d[0:32] in the fragment layout of the first 64
+// columns of mma_n256's.
+template <int T = 0>
+__device__ __forceinline__ void mma_n64(float (&d)[128], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(WGMMA("m64n64k16", D32, "%32", "%33", "%34", "%35")
+               : F8(0), F8(8), F8(16), F8(24)
+               : "l"(da), "l"(db), "r"(1), "n"(T));
+}
+template <int T = 0>
+__device__ __forceinline__ void mma_n64_first(float (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(WGMMA("m64n64k16", D32, "%32", "%33", "%34", "%35")
+               : W8(0), W8(8), W8(16), W8(24)
+               : "l"(da), "l"(db), "r"(0), "n"(T));
 }
 // The same for 32 columns: d[0:16] in the fragment layout of the first 32
 // columns of mma_n256's.
 __device__ __forceinline__ void mma_n32(float (&d)[128], uint64_t da,
                                         uint64_t db) {
-  asm volatile(WGMMA("m64n32k16", D16, "%16", "%17", "%18")
+  asm volatile(WGMMA("m64n32k16", D16, "%16", "%17", "%18", "%19")
                : F8(0), F8(8)
-               : "l"(da), "l"(db), "r"(1));
+               : "l"(da), "l"(db), "r"(1), "n"(0));
 }
 __device__ __forceinline__ void mma_n32_first(float (&d)[128], uint64_t da,
                                               uint64_t db) {
-  asm volatile(WGMMA("m64n32k16", D16, "%16", "%17", "%18")
+  asm volatile(WGMMA("m64n32k16", D16, "%16", "%17", "%18", "%19")
                : W8(0), W8(8)
-               : "l"(da), "l"(db), "r"(0));
+               : "l"(da), "l"(db), "r"(0), "n"(0));
 }
 #undef D128
+#undef D32
 #undef D16
 #undef WGMMA
 #undef F8
@@ -1016,15 +970,17 @@ __device__ __forceinline__ void mma_n32_first(float (&d)[128], uint64_t da,
 
 // ---- the weight ring
 
-struct Ring {
+template <int kN, int kBytes>  // stages, bytes a stage
+struct RingOf {
   uint32_t stages, full, empty;  // shared addresses of stage 0, full[0],
                                  // empty[0] (8 bytes a barrier)
   int it;                        // stages consumed (or filled) so far
-  __device__ uint32_t stage() const { return stages + (it % kRing) * kStageBytes; }
-  __device__ uint32_t full_bar() const { return full + 8 * (it % kRing); }
-  __device__ uint32_t empty_bar() const { return empty + 8 * (it % kRing); }
-  __device__ uint32_t parity() const { return (it / kRing) & 1; }
+  __device__ uint32_t stage() const { return stages + (it % kN) * kBytes; }
+  __device__ uint32_t full_bar() const { return full + 8 * (it % kN); }
+  __device__ uint32_t empty_bar() const { return empty + 8 * (it % kN); }
+  __device__ uint32_t parity() const { return (it / kN) & 1; }
 };
+typedef RingOf<kRing, kStageBytes> Ring;
 
 // Product `p` of a tile: chain_fwd runs every layer forward; chain_bwd the
 // layers but the head forward, then the dX products from the head down.
@@ -1847,6 +1803,327 @@ cudaError_t launch(const Chain& ch, const void* emb, const void* dists,
   return cudaGetLastError();
 }
 
+// ---- bf16 chain_dw: dW_l = sum over rows of A_l^T G_l, split-K on wgmma
+
+constexpr int kDwSlab = 128;                  // dW rows of an item
+constexpr int kDwRing = 3;                    // stages (4 ran slower)
+constexpr int kBox = 64 * 128;                // a TMA box: 64 rows x 64 bf16
+constexpr int kDwGOff = 2 * kBox;             // G's boxes follow A's two
+constexpr int kDwStageBytes = 6 * kBox;       // A 128 columns, G up to 256
+constexpr int kDwSmem = kDwRing * kDwStageBytes + 2 * kDwRing * 8 + 1024;
+constexpr int kDwMaxItems = 48, kDwMaxSplits = 64;
+
+// One item of a row split (ops/shading_chain.dw_plan): dW rows
+// [k0, k0 + rows) of one layer, all its np columns, in nw-column wgmmas
+// (64 or 256); the A columns from acol (= aoff + k0), the G columns from
+// gcol (= goff); its dW at out (= woff + k0 np) of a split's partial row; and
+// the db columns [db0, db1) this item's block sums for the split.
+struct DwItem {
+  int acol, gcol, rows, nw, np, out, db0, db1;
+};
+// The items of one split (J) and the S splits' first 64-row stage
+// (split[S] = npad / 64): item i of the launch is item i % J of split i / J.
+struct DwPlan {
+  int J, S, wtot, width;  // width: wtot + btot, a partial row
+  DwItem item[kDwMaxItems];
+  int split[kDwMaxSplits + 1];
+};
+
+// A box of 64 columns from column x and 64 rows from row y of the tensor
+// map's array into shared memory at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x, int y, uint32_t bar,
+                                         uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar),
+      "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ uint64_t evict_normal() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+typedef RingOf<kDwRing, kDwStageBytes> DwRing;
+
+// The producer (one thread): each stage of each of the block's items, G's
+// boxes (read by the split's other items of the layer at about the same
+// time) then A's (the columns only this item reads: leave L2 first).
+__device__ void dw_produce(const CUtensorMap* amap, const CUtensorMap* gmap,
+                           const DwPlan& plan, DwRing r) {
+  const uint64_t once = evict_first(), shared = evict_normal();
+  for (int i = blockIdx.x; i < plan.J * plan.S; i += gridDim.x) {
+    const DwItem& it = plan.item[i % plan.J];
+    const int s = i / plan.J;
+    const int ng = it.nw / 64;
+    for (int t = plan.split[s]; t < plan.split[s + 1]; ++t, ++r.it) {
+      mbar_wait(r.empty_bar(), r.parity() ^ 1);
+      mbar_expect_tx(r.full_bar(), (2 + ng) * kBox);
+      for (int p = 0; p < ng; ++p)
+        tma_load(r.stage() + kDwGOff + p * kBox, gmap, it.gcol + 64 * p,
+                 64 * t, r.full_bar(), shared);
+      for (int p = 0; p < 2; ++p)
+        tma_load(r.stage() + p * kBox, amap, it.acol + 64 * p, 64 * t,
+                 r.full_bar(), once);
+    }
+  }
+}
+
+// Warps 1-3 of the producer warpgroup: the db columns of each of the
+// block's items, the split's per-64-row partials summed in row order.
+__device__ void dw_db(const DwPlan& plan, const float* __restrict__ dbpart,
+                      int btot, float* __restrict__ partial, int tid) {
+  for (int i = blockIdx.x; i < plan.J * plan.S; i += gridDim.x) {
+    const DwItem& it = plan.item[i % plan.J];
+    const int s = i / plan.J, b0 = plan.split[s], nb = plan.split[s + 1] - b0;
+    for (int c = it.db0 + tid; c < it.db1; c += 96) {
+      const float* p = dbpart + (size_t)b0 * btot + c;
+      float sum = 0.f;
+      int b = 0;
+      for (; b + 8 <= nb; b += 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = p[(size_t)(b + u) * btot];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) sum += v[u];
+      }
+      for (; b < nb; ++b) sum += p[(size_t)b * btot];
+      partial[(size_t)s * plan.width + plan.wtot + c] = sum;
+    }
+  }
+}
+
+// One stage's products for the warpgroup: its 64 dW rows (a: its A box,
+// 64 rows of the scratch by 64 columns) by NW columns (b: G's boxes), the
+// stage's 64 scratch rows as four k-steps of 16; the first stage of an item
+// overwrites acc.
+template <int NW, bool kFirst>
+__device__ __forceinline__ void dw_stage(float (&acc)[128], uint32_t a,
+                                         uint32_t b) {
+  wg_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t da = mn128(a + 2048 * k, kBox), db = mn128(b + 2048 * k, kBox);
+    if (kFirst && k == 0) {
+      if (NW == kWide)
+        mma_n256_first<1>(acc, da, db);
+      else
+        mma_n64_first<1>(acc, da, db);
+    } else if (NW == kWide) {
+      mma_n256<1>(acc, da, db);
+    } else {
+      mma_n64<1>(acc, da, db);
+    }
+  }
+  wg_commit();
+}
+
+// The warpgroup's share of an item over its split's n stages: each stage's
+// products issued before the previous stage's are waited for, each stage
+// released to the producer once its products are done (one arrival per
+// warpgroup).  Both warpgroups run every item (no branch on the warpgroup
+// around a wgmma, which ptxas would serialize): in an item of at most 64
+// dW rows the second one's rows are dropped.
+template <int NW>
+__device__ __forceinline__ void dw_consume(float (&acc)[128], DwRing& r, int n,
+                                           uint32_t a_off, bool leader) {
+  uint32_t prev = 0;
+  for (int t = 0; t < n; ++t, ++r.it) {
+    mbar_wait(r.full_bar(), r.parity());
+    const uint32_t st = r.stage();
+    if (t == 0)
+      dw_stage<NW, true>(acc, st + a_off, st + kDwGOff);
+    else
+      dw_stage<NW, false>(acc, st + a_off, st + kDwGOff);
+    if (t > 0) {
+      wg_wait<1>();
+      if (leader) mbar_arrive(prev);
+    }
+    prev = r.empty_bar();
+  }
+  // outside the loop: ptxas cannot tell that the loop ran (n >= 1), and an
+  // accumulator read on a path without a wait serializes every wgmma
+  wg_wait<0>();
+  if (leader) mbar_arrive(prev);
+  pin(acc);
+}
+
+// The warpgroup's dW rows [0, rows) (of its 64) by columns [0, np) into
+// out (row stride np), 8 bytes a store.  A thread holds rows 16 warp + g,
+// + 8 and columns 8 j + 2 q, + 1.
+template <int NW>
+__device__ __forceinline__ void dw_store(const float (&acc)[128],
+                                         float* __restrict__ out, int np,
+                                         int rows, int warp, int g, int q) {
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = 8 * j + 2 * q;
+    if (c < np) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * warp + g + 8 * h;
+        if (m < rows)
+          *reinterpret_cast<float2*>(out + (size_t)m * np + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// partial[s] = split s's dW | db.  Persistent: block b takes items b,
+// b + grid, ...; a producer warpgroup (one TMA thread, three db warps) and
+// two consumer warpgroups of 64 dW rows each.
+__global__ void __launch_bounds__(kThreads, 1)
+dw_hop(const __grid_constant__ CUtensorMap amap,
+       const __grid_constant__ CUtensorMap gmap,
+       const __grid_constant__ DwPlan plan, const float* __restrict__ dbpart,
+       int btot, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sb0 = smem_u32(smem_raw);
+  const uint32_t sb = sb0 + ((1024 - (sb0 & 1023)) & 1023);
+  const uint32_t bars = sb + kDwRing * kDwStageBytes;
+  DwRing ring{sb, bars, bars + 8 * kDwRing, 0};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwRing; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0)
+      dw_produce(&amap, &gmap, plan, ring);
+    else if (threadIdx.x >= 32)
+      dw_db(plan, dbpart, btot, partial, threadIdx.x - 32);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int k = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, q = tid & 3;
+  float acc[128];
+  for (int i = blockIdx.x; i < plan.J * plan.S; i += gridDim.x) {
+    const DwItem& it = plan.item[i % plan.J];
+    const int s = i / plan.J, n = plan.split[s + 1] - plan.split[s];
+    const int rows = it.rows - kWgRows * k;
+    float* out = partial + (size_t)s * plan.width + it.out +
+                 (size_t)kWgRows * k * it.np;
+    if (it.nw == kWide) {
+      dw_consume<kWide>(acc, ring, n, k * kBox, tid == 0);
+      dw_store<kWide>(acc, out, it.np, rows, warp, g, q);
+    } else {
+      dw_consume<64>(acc, ring, n, k * kBox, tid == 0);
+      dw_store<64>(acc, out, it.np, rows, warp, g, q);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (the library
+// links no libcuda); null if the driver has none.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major bf16 [rows, cols] scratch: 64 x 64 boxes,
+// the 128-byte swizzle wgmma reads, zeros past its last column.
+bool scratch_map(EncodeTiled enc, CUtensorMap* map, const void* base,
+                 int cols, long long rows) {
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64}, step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The DwPlan of dw_plan's ints [J, S, J items of 8, S + 1 split bounds];
+// false unless every item and bound lies inside the chain's arrays and the
+// kernel's tiles (a layer over 256 columns, or rows not 64-row stages, are
+// refused) and every split has rows.
+bool read_dw_plan(const Chain& ch, const int* p, int len, long long npad,
+                  DwPlan* pl) {
+  if (len < 2) return false;
+  pl->J = p[0];
+  pl->S = p[1];
+  pl->wtot = ch.wtot;
+  pl->width = ch.wtot + ch.btot;
+  if (pl->J < 1 || pl->J > kDwMaxItems || pl->S < 1 || pl->S > kDwMaxSplits ||
+      len != 2 + 8 * pl->J + pl->S + 1 || npad % 64 ||
+      npad / 64 > (1LL << 30))
+    return false;
+  for (int j = 0; j < pl->J; ++j) {
+    const int* m = p + 2 + 8 * j;
+    DwItem& it = pl->item[j];
+    it = DwItem{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7]};
+    if (it.acol < 0 || it.rows < 1 || it.rows > kDwSlab ||
+        it.acol + it.rows > ch.atot || (it.nw != 64 && it.nw != kWide) ||
+        it.np < 1 || it.np > it.nw || it.np % 2 || it.gcol < 0 ||
+        it.gcol + it.np > ch.gtot || it.out < 0 || it.out % 2 ||
+        (long long)it.out + (long long)it.rows * it.np > ch.wtot ||
+        it.db0 < 0 || it.db0 > it.db1 || it.db1 > ch.btot)
+      return false;
+  }
+  const int* b = p + 2 + 8 * pl->J;
+  if (b[0] != 0 || b[pl->S] != npad / 64) return false;
+  for (int s = 0; s <= pl->S; ++s) {
+    if (s > 0 && b[s] <= b[s - 1]) return false;
+    pl->split[s] = b[s];
+  }
+  return true;
+}
+
+cudaError_t dw_launch(const Chain& ch, const int* plan, int plan_len,
+                      const void* ascr, const void* gscr, const void* dbpart,
+                      long long npad, int parts, void* partial, void* grad,
+                      cudaStream_t st) {
+  DwPlan pl;
+  if (!read_dw_plan(ch, plan, plan_len, npad, &pl) || pl.S != parts)
+    return cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (!enc) return cudaErrorNotSupported;
+  CUtensorMap amap, gmap;
+  if (!scratch_map(enc, &amap, ascr, ch.atot, npad) ||
+      !scratch_map(enc, &gmap, gscr, ch.gtot, npad))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      dw_hop, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  if (e != cudaSuccess) return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int items = pl.J * pl.S;
+  dw_hop<<<items < sms ? items : sms, kThreads, kDwSmem, st>>>(
+      amap, gmap, pl, (const float*)dbpart, ch.btot, (float*)partial);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  chain_reduce<<<(unsigned)((pl.width + kThreads - 1) / kThreads), kThreads,
+                 0, st>>>(
+      (const float*)partial, pl.S, pl.width, (float*)grad);
+  return cudaGetLastError();
+}
+
 }  // namespace hop
 
 // ------------------------------------------------------------------- host
@@ -1989,39 +2266,35 @@ extern "C" int chain_bwd_launch(const int* meta, int dtype, const void* emb,
 }
 
 // grad [wtot + btot] = every dW and db, from the scratch A and G and the
-// per-64-row db partials of chain_bwd: each chunk of chunk_rows rows into
-// partial [chunks, wtot + btot] (chain_dw), then the chunks summed in order
-// (chain_reduce).
+// per-64-row db partials of chain_bwd, over npad rows (a multiple of 64),
+// in two launches: the sums of each part of the rows into partial
+// [parts, wtot + btot], then the parts summed in order (chain_reduce).
+// bf16: the parts are the row splits of `plan`, ops/shading_chain.dw_plan's
+// plan_len ints (hop::dw_hop).  float32: chunks of 4,096 rows
+// (kF32ChunkRows), `plan` unread.
 extern "C" int chain_dw_launch(const int* meta, int dtype, const void* ascr,
                                const void* gscr, const void* dbpart,
-                               long long npad, int chunk_rows, int chunks,
-                               void* partial, void* grad, void* stream) {
+                               long long npad, const int* plan, int plan_len,
+                               int parts, void* partial, void* grad,
+                               void* stream) {
   Chain ch;
-  if (!read_meta(meta, &ch) || npad <= 0 || npad % kT ||
-      chunk_rows <= 0 || chunk_rows % kT ||
-      (long long)chunks * chunk_rows < npad ||
-      (long long)(chunks - 1) * chunk_rows >= npad)
+  if (!read_meta(meta, &ch) || npad <= 0 || npad % kT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype)
+    return (int)hop::dw_launch(ch, plan, plan_len, ascr, gscr, dbpart, npad,
+                               parts, partial, grad, st);
+  if (parts != (npad + kF32ChunkRows - 1) / kF32ChunkRows)
+    return (int)cudaErrorInvalidValue;
   const int wt = w_tiles(ch);
-  const dim3 grid(wt + (ch.btot + kThreads - 1) / kThreads, chunks);
-  cudaError_t e;
-  if (dtype) {
-    constexpr size_t bytes = dw_smem<__nv_bfloat16>();
-    e = prepare(chain_dw<__nv_bfloat16>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    chain_dw<__nv_bfloat16><<<grid, kThreads, bytes, st>>>(
-        ch, (const __nv_bfloat16*)ascr, (const __nv_bfloat16*)gscr,
-        (const float*)dbpart, npad, chunk_rows, wt, (float*)partial);
-  } else {
-    chain_dw<float><<<grid, kThreads, 0, st>>>(
-        ch, (const float*)ascr, (const float*)gscr, (const float*)dbpart,
-        npad, chunk_rows, wt, (float*)partial);
-  }
-  e = cudaGetLastError();
+  const dim3 grid(wt + (ch.btot + kThreads - 1) / kThreads, parts);
+  chain_dw_f32<<<grid, kThreads, 0, st>>>(
+      ch, (const float*)ascr, (const float*)gscr, (const float*)dbpart, npad,
+      kF32ChunkRows, wt, (float*)partial);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long width = (long long)ch.wtot + ch.btot;
   chain_reduce<<<(unsigned)((width + kThreads - 1) / kThreads), kThreads, 0,
-                 st>>>((const float*)partial, chunks, width, (float*)grad);
+                 st>>>((const float*)partial, parts, width, (float*)grad);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@ with the positional encoding built inside, forward and backward.
 CUDA tensors it launches the hand-written kernels of `csrc/shading_chain.cu`
 (`chain_fwd`; in the backward `chain_bwd` and `chain_dw`); in bf16 the
 first two read the weights as `stage_images`, each chunk laid out as the
-shared-memory image their `wgmma` products read.  On
+shared-memory image their `wgmma` products read, and `chain_dw` sums the
+backward's scratch by the row splits of `dw_plan`.  On
 CPU tensors it runs `chain_plain` and `chain_backward_plain`, which follow
 the TPU kernel's arithmetic: the operands of every product are rounded to
 the compute type (bf16 or f32), products accumulate in f32, and bias, leaky
@@ -38,7 +39,14 @@ from hybridneuralrendering_tpu_torch.core.encoding import positional_encoding
 SLOPE = 0.01
 TILE = 64           # rows of a db partial; the backward pads rows to it
 ALIGN = 16          # every padded width (one mma tile edge)
-CHUNK_ROWS = 4096   # rows of one chain_dw partial sum
+CHUNK_ROWS = 4096   # rows of a float32 chain_dw partial sum (kF32ChunkRows)
+# the bf16 chain_dw (csrc/shading_chain.cu hop::dw_hop): an item is DW_SLAB
+# rows of one layer's dW (kDwSlab: two consumer warpgroups of 64); the rows
+# of the scratch are cut into as many splits as make about DW_ITEMS items,
+# one per SM of an H100 (132 SMs) in one wave.  DW_ITEMS is a constant, not
+# the card's SM count, so the order of the sums, and their bits, follow from
+# the shapes alone.
+DW_SLAB, DW_ITEMS = 128, 132
 # the bf16 kernels' weight stages: CHUNK_K rows of K by a pass of WIDE or
 # NARROW output columns (csrc/shading_chain.cu hop::kChunkK, kWide, kNarrow)
 CHUNK_K, WIDE, NARROW = 64, 256, 32
@@ -279,6 +287,35 @@ def stage_images(w: torch.Tensor, layout: ChainLayout) -> torch.Tensor:
     return torch.cat([w[:layout.wtot], w.new_zeros(1)])[idx]
 
 
+@functools.lru_cache(maxsize=32)
+def dw_plan(layout: ChainLayout, npad: int) -> Tuple[int, ...]:
+    """The bf16 chain_dw's work over npad scratch rows (a multiple of TILE),
+    as the ints csrc/shading_chain.cu read_dw_plan takes:
+    [J, S, J items of 8 ints, S + 1 split bounds].
+
+    Items of one split, layer by layer: (acol, gcol, rows, nw, np, out, db0,
+    db1) = dW rows [k0, k0 + rows) of the layer (rows <= DW_SLAB), read from
+    scratch columns acol = aoff + k0 of A and goff of G, all np columns in
+    wgmmas nw = 64 (np <= 64) or 256 wide, written at out = woff + k0 np of
+    the packed gradient; db columns [db0, db1) are summed by the item's
+    block.  S = DW_ITEMS // J splits (at most one per 64-row stage, at least
+    one); split s takes the stages [bounds[s], bounds[s + 1]), as even as
+    whole stages allow."""
+    stages = npad // TILE
+    items = []
+    for s in layout.layers:
+        nw = 64 if s.np <= 64 else WIDE
+        for k0 in range(0, s.kp, DW_SLAB):
+            items.append([s.aoff + k0, s.goff, min(DW_SLAB, s.kp - k0), nw,
+                          s.np, s.woff + k0 * s.np])
+    J = len(items)
+    S = max(1, min(stages, DW_ITEMS // J))
+    for j, item in enumerate(items):
+        item += [j * layout.btot // J, (j + 1) * layout.btot // J]
+    bounds = [i * stages // S for i in range(S + 1)]
+    return tuple([J, S] + [v for item in items for v in item] + bounds)
+
+
 def _kernel_weights(layout: ChainLayout, w: torch.Tensor) -> torch.Tensor:
     """What chain_fwd and chain_bwd take as `w`: the stage images in bf16,
     pack_chain's w in float32."""
@@ -462,7 +499,8 @@ def _lib():
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.chain_fwd_launch.argtypes = [P, I] + [P] * 5 + [LL] + [P] * 3
         lib.chain_bwd_launch.argtypes = [P, I] + [P] * 7 + [LL] + [P] * 7
-        lib.chain_dw_launch.argtypes = [P, I, P, P, P, LL, I, I, P, P, P]
+        lib.chain_dw_launch.argtypes = [P, I, P, P, P, LL, P, I, I, P, P,
+                                        P]
         for f in ("chain_fwd_launch", "chain_bwd_launch", "chain_dw_launch"):
             getattr(lib, f).restype = I
         lib._typed = True
@@ -554,19 +592,34 @@ def chain_backward(layout: ChainLayout, w, b, emb, dists, extra, dfeat,
 def chain_dw(layout: ChainLayout, ascr: torch.Tensor, gscr: torch.Tensor,
              dbpart: torch.Tensor) -> torch.Tensor:
     """chain_dw on the card: the packed f32 gradient [wtot + btot] (every
-    dW = A^T G and db, in unpack_chain's layout), summed per CHUNK_ROWS rows
-    and then over the chunks in order."""
+    dW = A^T G and db, in unpack_chain's layout) of the scratch A [npad,
+    atot], G [npad, gtot] and the db partials [npad / TILE, btot], summed
+    per row split of dw_plan (bf16) or per CHUNK_ROWS rows (float32), then
+    over the splits in order."""
+    _check_inputs(ascr.dtype, ascr, gscr, dbpart)
     npad = ascr.shape[0]
-    chunks = -(-npad // CHUNK_ROWS)
-    partial = torch.empty((chunks, layout.wtot + layout.btot),
+    if (ascr.dtype not in COMPUTE_DTYPES.values()
+            or gscr.dtype != ascr.dtype or dbpart.dtype != torch.float32
+            or npad % TILE or ascr.shape != (npad, layout.atot)
+            or gscr.shape != (npad, layout.gtot)
+            or dbpart.shape != (npad // TILE, layout.btot)):
+        raise ValueError("chain_dw: scratch A [npad, atot] and G [npad, "
+                         "gtot] of the compute type, db partials [npad / 64, "
+                         "btot] float32")
+    if ascr.dtype == torch.bfloat16:
+        plan = dw_plan(layout, npad)
+        parts = plan[1]
+    else:
+        plan, parts = (), -(-npad // CHUNK_ROWS)
+    partial = torch.empty((parts, layout.wtot + layout.btot),
                           device=ascr.device)
     grad = torch.empty(layout.wtot + layout.btot, device=ascr.device)
     with torch.cuda.device(ascr.device):
         err = _lib().chain_dw_launch(
             _meta(layout), int(ascr.dtype == torch.bfloat16),
             ascr.data_ptr(), gscr.data_ptr(), dbpart.data_ptr(), npad,
-            CHUNK_ROWS, chunks, partial.data_ptr(), grad.data_ptr(),
-            _stream(ascr))
+            (ctypes.c_int * len(plan))(*plan), len(plan), parts,
+            partial.data_ptr(), grad.data_ptr(), _stream(ascr))
     _check(err, "chain_dw")
     LAUNCHES["shading_chain_dw"] += 1
     return grad

@@ -385,14 +385,121 @@ def test_fused_feat_alpha_autograd_on_card_matches_cpu(cuda, dtype):
 @pytest.mark.parametrize("F,dtype", [(272, "bfloat16"), (512, "float32")])
 def test_shading_chain_kernels_refuse_layers_too_wide(cuda, F, dtype):
     """A layer wider than the kernels' 256-column pass is refused by the C
-    function itself (cudaErrorInvalidValue), which the wrapper raises."""
+    function itself (cudaErrorInvalidValue), which the wrapper raises:
+    chain_fwd, and chain_dw on scratch of the layout."""
     cfg, params, x = _chain_case(cuda, F, 7, 100, dtype)
     layout = TSC.chain_layout(params, cfg, 32, 6, 7)
-    w, b = TSC.pack_chain(params, layout, TSC.COMPUTE_DTYPES[dtype])
+    dt = TSC.COMPUTE_DTYPES[dtype]
+    w, b = TSC.pack_chain(params, layout, dt)
     before = dict(TSC.LAUNCHES)
     with pytest.raises(RuntimeError, match="chain_fwd"):
         TSC.chain_forward(layout, w, b, x["emb"], x["dists"], x["extra"])
+    z = lambda *s, dt=dt: torch.zeros(*s, dtype=dt, device=cuda)  # noqa
+    with pytest.raises(RuntimeError, match="chain_dw"):
+        TSC.chain_dw(layout, z(128, layout.atot), z(128, layout.gtot),
+                     z(2, layout.btot, dt=torch.float32))
     assert TSC.LAUNCHES == before
+
+
+def _dw_case(cuda, npad, F=256, seed=4):
+    """The chain layout at feature width F (scannet_full's at 256) and
+    random scratch of npad rows as chain_bwd leaves it: A and G bf16 (G at
+    a cotangent's scale), the db partials float32."""
+    cfg, params, _ = _chain_case(cuda, F, 7, 1, "bfloat16", seed)
+    layout = TSC.chain_layout(params, cfg, 32, 6, 7)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)   # noqa: E731
+    ascr = r(npad, layout.atot).to(torch.bfloat16)
+    gscr = (1e-2 * r(npad, layout.gtot)).to(torch.bfloat16)
+    return layout, ascr, gscr, r(npad // 64, layout.btot)
+
+
+def _dw_plain(layout, ascr, gscr, dbpart):
+    """The packed gradient [wtot + btot] in float64: each A_l^T G_l of the
+    bf16 scratch, then db."""
+    parts = [(ascr[:, s.aoff:s.aoff + s.kp].double().t()
+              @ gscr[:, s.goff:s.goff + s.np].double()).reshape(-1)
+             for s in layout.layers]
+    return torch.cat(parts + [dbpart.double().sum(0)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npad,F", [
+    (64, 256), (128, 256), (64 * 13, 256), (64 * 1_000, 256),
+    (602_112, 256), (64 * 50, 128)])
+def test_chain_dw_matches_plain(cuda, npad, F):
+    """The bf16 chain_dw against A^T G and the db sum in float64, per layer
+    and for db.  Both read the same bf16 scratch; only the sums differ.
+    The tensor cores add each k-step of 16 rows into the f32 accumulator
+    with the bits below its last place cut, not rounded (an error of up to
+    2**-23 of the running sum, toward zero, a step), so an item's sum over
+    a split of R rows can be off by up to R / 16 * 2**-23 relative: the
+    limit for dW, 4.1e-4 at 602,112 rows (3,424 k-steps a split), at least
+    2**-16 (the float32 order tolerance) for short splits.  db is summed on
+    the CUDA cores, rounded: 2**-16.  A stage of 64 rows lost or read
+    twice moves the result by about 1 / sqrt(stages), 1e-2 at 602,112
+    rows.  npad 64 and 128 are one and two splits of one stage, 64 * 13
+    splits of one or two stages, 64 * 1,000 splits of 90 or 91; F = 128
+    runs 128-column layers in 256-column wgmmas and block3's 144 inputs as
+    an item of 128 rows and one of 16."""
+    layout, ascr, gscr, dbpart = _dw_case(cuda, npad, F)
+    before = TSC.LAUNCHES["shading_chain_dw"]
+    got = TSC.chain_dw(layout, ascr, gscr, dbpart)
+    want = _dw_plain(layout, ascr, gscr, dbpart)
+    torch.cuda.synchronize()
+    assert TSC.LAUNCHES["shading_chain_dw"] == before + 1
+    plan = TSC.dw_plan(layout, npad)
+    bounds = plan[2 + 8 * plan[0]:]
+    ksteps = 4 * max(b - a for a, b in zip(bounds, bounds[1:]))
+    f32 = TSC.tolerance("float32", "grad")
+    tol = max(f32, ksteps * 2.0 ** -23)
+    errs = {f"{s.key[0]}/{s.key[1]}": TSC.rel_l2(
+        got[s.woff:s.woff + s.kp * s.np], want[s.woff:s.woff + s.kp * s.np])
+        for s in layout.layers}
+    db_err = TSC.rel_l2(got[layout.wtot:], want[layout.wtot:])
+    print(f"chain_dw npad={npad} F={F} limit {tol:.3g} rel_l2 {errs} db "
+          f"{db_err:.3g}")
+    assert max(errs.values()) <= tol, errs
+    assert db_err <= f32
+
+
+@pytest.mark.gpu
+def test_chain_dw_is_bit_repeatable_on_two_streams(cuda):
+    """The same sums in the same order on any stream, with two launches on
+    two streams in flight together: no state outside the launch."""
+    layout, ascr, gscr, dbpart = _dw_case(cuda, 64 * 1_000)
+    one = TSC.chain_dw(layout, ascr, gscr, dbpart)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    out = []
+    for st in side:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            out.append(TSC.chain_dw(layout, ascr, gscr, dbpart))
+    torch.cuda.synchronize()
+    for x in out:
+        assert torch.equal(x, one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field,value", [(2, 129), (3, 128), (1, 1_100),
+                                         (-2, 0)])
+def test_chain_dw_refuses_a_plan_outside_its_tiles(cuda, field, value):
+    """The C function checks the plan it is given: an item of more than
+    128 dW rows, a wgmma width other than 64 or 256, G columns past the
+    scratch, or a row split with no rows return cudaErrorInvalidValue (1)
+    before any launch."""
+    import ctypes
+    layout, ascr, gscr, dbpart = _dw_case(cuda, 128)
+    plan = list(TSC.dw_plan(layout, 128))
+    plan[2 + field if field >= 0 else field] = value
+    grad = torch.empty(layout.wtot + layout.btot, device=cuda)
+    partial = torch.empty((plan[1], grad.numel()), device=cuda)
+    err = TSC._lib().chain_dw_launch(
+        TSC._meta(layout), 1, ascr.data_ptr(), gscr.data_ptr(),
+        dbpart.data_ptr(), 128, (ctypes.c_int * len(plan))(*plan), len(plan),
+        plan[1], partial.data_ptr(), grad.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1
 
 
 @pytest.mark.gpu

@@ -311,6 +311,106 @@ def test_scannet_full_layout():
     assert len(layout.meta) == 13 + 8 * 5
 
 
+def _layout(case, seed=0, dtype="bfloat16"):
+    c = CASES[case]
+    p = _torch(_inputs(c, seed)["params"])
+    return SC.chain_layout(p, _cfg(c, dtype), c["de"], c["dd"], c["ce"])
+
+
+def _dw_plan_parts(plan):
+    """dw_plan's ints -> (items [(acol, gcol, rows, nw, np, out, db0, db1)],
+    split bounds in 64-row stages)."""
+    J, S = plan[:2]
+    items = [plan[2 + 8 * j:10 + 8 * j] for j in range(J)]
+    bounds = list(plan[2 + 8 * J:])
+    assert len(bounds) == S + 1
+    return items, bounds
+
+
+@pytest.mark.parametrize("npad", [64, 64 * 13, 64 * 1_000, 602_112])
+@pytest.mark.parametrize("case", ["scannet_full", "tiny_test"])
+def test_dw_plan_covers_each_weight_and_row_once(case, npad):
+    """The bf16 chain_dw's plan: in every row split, each (layer, dW row,
+    column) and each db column belongs to exactly one item, each item reads
+    its own layer's A columns (aoff + its first dW row) and G columns, in
+    64- or 256-wide wgmmas of at most 128 dW rows; the splits cut the
+    npad / 64 stages into S = DW_ITEMS // J non-empty, contiguous pieces
+    (so each scratch row is summed exactly once for each layer); the plan
+    is the same for another layout of the same shapes.  tiny_test is
+    ragged: block1's 64 inputs, block3's 135 padded to 144."""
+    layout = _layout(case)
+    plan = SC.dw_plan(layout, npad)
+    assert plan == SC.dw_plan(_layout(case, seed=1), npad)
+    items, bounds = _dw_plan_parts(plan)
+    stages = npad // 64
+    assert plan[1] == max(1, min(stages, SC.DW_ITEMS // len(items)))
+    assert bounds[0] == 0 and bounds[-1] == stages
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    assert max(np.diff(bounds)) - min(np.diff(bounds)) <= 1
+    count = torch.zeros(layout.wtot + layout.btot, dtype=torch.int32)
+    for acol, gcol, rows, nw, np_, out, db0, db1 in items:
+        slot = next(s for s in layout.layers
+                    if s.woff <= out < s.woff + s.kp * s.np)
+        k0 = (out - slot.woff) // slot.np
+        assert out == slot.woff + k0 * slot.np and acol == slot.aoff + k0
+        assert gcol == slot.goff and np_ == slot.np
+        assert 0 < rows <= SC.DW_SLAB and k0 + rows <= slot.kp
+        assert nw == (64 if slot.np <= 64 else 256)
+        count[out:out + rows * np_] += 1
+        count[layout.wtot + db0:layout.wtot + db1] += 1
+    assert torch.equal(count, torch.ones_like(count))
+
+
+def _dw_order_model(layout, ascr, gscr, dbpart):
+    """The bf16 chain_dw's order of sums on the CPU: per row split of
+    dw_plan and per item, a float32 running sum over the split's 64-row
+    stages of A_stage^T G_stage (the stage's own products in float32), db
+    the split's partials in row order; then the splits in order."""
+    items, bounds = _dw_plan_parts(SC.dw_plan(layout, ascr.shape[0]))
+    A, G = ascr.float(), gscr.float()
+    width = layout.wtot + layout.btot
+    total = torch.zeros(width)
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = torch.zeros(width)
+        for acol, gcol, rows, _, np_, out, db0, db1 in items:
+            acc = torch.zeros(rows, np_)
+            for t in range(lo, hi):
+                r = slice(64 * t, 64 * t + 64)
+                acc += A[r, acol:acol + rows].t() @ G[r, gcol:gcol + np_]
+            part[out:out + rows * np_] = acc.reshape(-1)
+            db = torch.zeros(db1 - db0)
+            for t in range(lo, hi):
+                db += dbpart[t, db0:db1]
+            part[layout.wtot + db0:layout.wtot + db1] = db
+        total += part
+    return total
+
+
+@pytest.mark.parametrize("case", ["scannet_full", "tiny_test"])
+def test_dw_order_model_matches_plain(case):
+    """The kernel's order of float32 sums (_dw_order_model) over bf16
+    scratch of 64 * 13 rows (eleven splits of one or two stages) against
+    the plain A^T G and db sum, per layer and for db, within the bf16
+    gradient tolerance (and the float32 one, 2**-16: only the order of the
+    f32 sums differs)."""
+    layout = _layout(case)
+    npad = 64 * 13
+    rng = np.random.default_rng(7)
+    f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32))  # noqa: E731,E501
+    ascr = f(npad, layout.atot).to(torch.bfloat16)
+    gscr = (1e-2 * f(npad, layout.gtot)).to(torch.bfloat16)
+    dbpart = f(npad // 64, layout.btot)
+    got = _dw_order_model(layout, ascr, gscr, dbpart)
+    for s in layout.layers:
+        want = (ascr[:, s.aoff:s.aoff + s.kp].float().t()
+                @ gscr[:, s.goff:s.goff + s.np].float())
+        err = SC.rel_l2(got[s.woff:s.woff + s.kp * s.np], want.reshape(-1))
+        assert err <= SC.tolerance("float32", "grad"), (s.key, err)
+        assert err <= SC.tolerance("bfloat16", "grad")
+    err = SC.rel_l2(got[layout.wtot:], dbpart.sum(0))
+    assert err <= SC.tolerance("float32", "grad")
+
+
 def test_chain_layout_rejects_bad_shapes():
     c = CASES["tiny_test"]
     p = _torch(_inputs(c)["params"])

@@ -9,6 +9,8 @@ Phases, each printing one JSON progress line:
                  the main path's shapes, with the tolerance it holds, times,
                  bound and the time of one PyTorch library call, and the
                  kernel's time over the library's and over the bound;
+                 K-min also on the device alone and bit for bit on edge
+                 rows (all BIG, all +inf, few entries below BIG, k > C);
                  the shading chain's forward at a serving chunk's and a
                  training step's rows and its two backward kernels at a
                  step's, with a planted fault, a bitwise repeat and the old
@@ -22,7 +24,9 @@ Phases, each printing one JSON progress line:
                  launches: the grid's and the supervoxels' segments);
   5. serve       4 requests of 16,384 rays through serve.render_rays, with
                  every kernel's launch count read over exactly that run (one
-                 K-min and one chain forward per request);
+                 K-min and one chain forward per request); then request 0
+                 again for the census of the K-min's rows (the share with
+                 fewer than K entries below BIG);
   6. check       the first rays of request 0 rendered again on the CPU
                  through the plain versions, compared with the card's result;
   7. train       train_config() on the same scene: 1 warm-up and 5 timed
@@ -211,18 +215,24 @@ def phase_build():
             f.result()
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=build.BUILD_SECONDS)
-    logs = sorted(build.BUILD_DIR.glob("libshading_chain-*.log"),
-                  key=lambda p: p.stat().st_mtime)
-    log("ptxas", lib="shading_chain",
-        kernels=ptxas_report(logs[-1].read_text()) if logs else None)
+    for lib in ("shading_chain", "k_smallest"):
+        logs = sorted(build.BUILD_DIR.glob(f"lib{lib}-*.log"),
+                      key=lambda p: p.stat().st_mtime)
+        log("ptxas", lib=lib,
+            kernels=ptxas_report(logs[-1].read_text()) if logs else None)
 
 
-# entry-function names of csrc/shading_chain.cu, by a piece of their
-# mangled names
+# entry-function names of csrc/shading_chain.cu and csrc/k_smallest.cu, by a
+# piece of their mangled names (K-min: the thread-per-row path by its list
+# size, the warp-per-row path by its columns a lane)
 PTXAS_NAMES = {"chain_hopILb0": "chain_fwd bf16", "chain_hopILb1":
                "chain_bwd bf16", "chain_fwd_f32": "chain_fwd f32",
                "chain_bwd_f32": "chain_bwd f32", "dw_hop": "chain_dw bf16",
-               "chain_dw_f32": "chain_dw f32", "chain_reduce": "chain_reduce"}
+               "chain_dw_f32": "chain_dw f32", "chain_reduce": "chain_reduce",
+               **{f"narrow_kernelILi{k}E": f"k_smallest narrow KB={k}"
+                  for k in (4, 8, 16)},
+               **{f"wide_kernelILi{n}E": f"k_smallest wide NPER={n}"
+                  for n in (1, 2, 4, 8, 16, 32)}}
 
 
 def ptxas_report(text):
@@ -256,9 +266,43 @@ def _select_bound_ms(S, C, K):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _select_edge_rows(C, K, gen, n=64):
+    """n rows of each kind that the fill rule meets (the plain version
+    overwrites each pick with BIG, so a row short of K entries below BIG
+    goes on with the lowest column then <= BIG): all BIG, all +inf, +inf
+    and 3e30 with and without BIG, exact ties, random with 30% BIG, and
+    1..K-1 entries below BIG among BIG, above-BIG or mixed columns."""
+    import torch
+    from hybridneuralrendering_tpu_torch.ops.select import BIG
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def pick(vals):
+        v = torch.tensor(vals, dtype=torch.float32, device="cuda")
+        return v[torch.randint(0, len(vals), (n, C), generator=gen,
+                               device="cuda")]
+
+    ties = torch.round(rand(n, C) * 8) / 8
+    ties[rand(n, C) < 0.3] = BIG
+    blocks = [pick([BIG]), pick([math.inf]), pick([math.inf, 3e30, BIG]),
+              pick([math.inf, 3e30]), pick([0.25, 0.5]), ties]
+    for m in range(1, K):
+        for rest in ([BIG], [math.inf, 3e30], [math.inf, 3e30, BIG]):
+            d = pick(rest)
+            cols = torch.argsort(rand(n, C), dim=1)[:, :m]
+            d.scatter_(1, cols, torch.round(rand(n, cols.shape[1]) * 4) / 4)
+            blocks.append(d)
+    d = torch.cat(blocks)
+    ids = torch.randint(0, 1 << 30, d.shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return d, ids
+
+
 def phase_kernels(cfg):
     """K-min kernel vs plain at the serving shape, the training step's
-    shape and two others."""
+    shape and two others, timed back to back and on the device alone; then
+    bit for bit on edge rows through both of its paths."""
     import torch
     from hybridneuralrendering_tpu_torch.ops import select
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -280,12 +324,30 @@ def phase_kernels(cfg):
             shape=[S, C, k], equal=True,
             max_abs_err=float((kd - pd).abs().max()),
             kernel_ms=cuda_ms(lambda: select.k_smallest(d, ids, k)),
+            kernel_graph_ms=graph_ms(lambda: select.k_smallest(d, ids, k),
+                                     5 if S > 100_000 else 20),
             plain_ms=cuda_ms(lambda: select.k_smallest_plain(d, ids, k)),
             library_ms=cuda_ms(lambda: torch.topk(d, k, dim=1,
                                                   largest=False)),
             bound_ms=bound, bound_by=by)
+        row["kernel_graph_over_bound"] = row["kernel_graph_ms"] / bound
         log_kernel("k_smallest", row)
         rows[(S, C, k)] = row
+    # thread per row to C = 64 and k = 16, warp per row past either
+    edge = [(32, 8), (64, 8), (32, 4), (5, 8), (33, 16), (1, 4), (702, 8),
+            (64, 17)]
+    n_rows = 0
+    for C, k in edge:
+        d, ids = _select_edge_rows(C, k, gen)
+        kd, ki = select.k_smallest(d, ids, k)
+        pd, pi = select.k_smallest_plain(d, ids, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            raise AssertionError(f"k_smallest kernel != plain on the edge "
+                                 f"rows at C={C}, k={k}")
+        n_rows += d.shape[0]
+    log("kernels", kernel="k_smallest", edge_rows=n_rows, shapes=edge,
+        equal=True)
     return rows[main_shape]
 
 
@@ -593,8 +655,34 @@ def phase_serve(cfg, points, grid, params):
         ray_hit_share=hit, rays_per_s=NUM_REQUESTS * RAYS_PER_REQUEST
         / (sum(ms) / 1e3), steady_rays_per_s=RAYS_PER_REQUEST
         / (steady / 1e3), max_memory_allocated=torch.cuda
-        .max_memory_allocated())
+        .max_memory_allocated(),
+        select_rows=_select_row_census(cfg, points, grid, params,
+                                       requests[0]))
     return requests, outs, launches
+
+
+def _select_row_census(cfg, points, grid, params, request):
+    """Request 0 once more, after the counted run: of the K-min's rows (the
+    query's d2 over each sample's Ps candidates), the share with fewer than
+    K entries below BIG, which the fill rule decides, and the share with
+    none (no supervoxel, or no candidate within the radius)."""
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.ops import query
+    seen = []
+
+    def census(real):
+        def k_smallest(d, ids, k):
+            below = (d < query.BIG).sum(1)
+            seen.append((d.shape[0], (below < k).sum(), (below == 0).sum()))
+            return real(d, ids, k)
+        return k_smallest
+
+    with _Planted(query, "k_smallest", census):
+        serve.render_rays(params, points, grid, request, cfg)
+    rows = sum(r for r, _, _ in seen)
+    return dict(rows=rows,
+                short_share=float(sum(s for _, s, _ in seen)) / rows,
+                empty_share=float(sum(e for _, _, e in seen)) / rows)
 
 
 def cpu(x):

@@ -5,7 +5,9 @@
 it launches the hand-written kernel `csrc/k_smallest.cu`; on a CPU tensor it
 runs `k_smallest_plain`, the K argmin-and-mask passes of the JAX package's
 `k_smallest_xla`.  The two return bit-identical results: selection does no
-arithmetic, and both break ties toward the lowest column.
+arithmetic, and both break ties toward the lowest column.  The kernel gives
+rows of up to 64 candidates with k up to 16 (the main path's) a thread each,
+in tiles of TILE_ROWS rows, and wider rows or a larger k a warp each.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import ctypes
 import torch
 
 BIG = 1e30
-MAX_COLUMNS = 1024   # the kernel holds at most 32 candidates per lane
+MAX_COLUMNS = 1024   # the warp-per-row path holds at most 32 per lane
+TILE_ROWS = 128      # rows of a thread-per-row tile (kTile in the source)
 # shared library name -> its sources under csrc/
 KERNEL_LIBS = {"k_smallest": ["k_smallest.cu"]}
 
@@ -52,8 +55,10 @@ def _kernel():
 def k_smallest(d: torch.Tensor, ids: torch.Tensor, k: int):
     """K smallest of each row, ascending, with their ids.
 
-    CUDA tensors go to the kernel (counted in `k_smallest.launches`), CPU
-    tensors to `k_smallest_plain`."""
+    CUDA tensors go to the kernel (counted in `k_smallest.launches`; an
+    empty batch launches nothing), CPU tensors to `k_smallest_plain`.  On
+    the card d and ids must be contiguous; any 4-byte-aligned view is
+    taken as it is."""
     if d.shape != ids.shape or d.dim() != 2:
         raise ValueError(f"d {tuple(d.shape)} and ids {tuple(ids.shape)} "
                          "must be one [S, C] shape")
@@ -67,13 +72,15 @@ def k_smallest(d: torch.Tensor, ids: torch.Tensor, k: int):
     if d.device.type != "cuda":
         raise ValueError(f"k_smallest runs on cpu or cuda, not {d.device}")
     S, C = d.shape
-    if not 1 <= C <= MAX_COLUMNS or k < 1:
-        raise ValueError(f"k_smallest kernel takes 1 <= C <= {MAX_COLUMNS} "
-                         f"and k >= 1, got C={C}, k={k}")
-    d = d.contiguous()
-    ids = ids.contiguous()
+    if not 1 <= C <= MAX_COLUMNS or k < 1 or S >= 2 ** 31:
+        raise ValueError(f"k_smallest kernel takes 1 <= C <= {MAX_COLUMNS}, "
+                         f"k >= 1 and S < 2**31, got S={S}, C={C}, k={k}")
+    if not (d.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("k_smallest kernel takes contiguous d and ids")
     out_d = torch.empty((S, k), dtype=torch.float32, device=d.device)
     out_i = torch.empty((S, k), dtype=torch.int32, device=d.device)
+    if S == 0:
+        return out_d, out_i
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(d.data_ptr(), ids.data_ptr(), out_d.data_ptr(),

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from hybridneuralrendering_tpu_torch.config import QuerierConfig
+from hybridneuralrendering_tpu_torch.device import resolve
 from hybridneuralrendering_tpu_torch.ops.scan import cumsum_rows
 
 # coordinate of empty bucket slots: its distance overflows any radius limit
@@ -57,10 +58,12 @@ def bucket_width(P: int) -> int:
 
 
 def compute_grid_geometry(xyz: np.ndarray, point_mask: np.ndarray,
-                          cfg: QuerierConfig, device="cpu") -> GridGeometry:
+                          cfg: QuerierConfig, device="cuda") -> GridGeometry:
     """AABB of the live points clipped to cfg.ranges, padded by half the
-    dilation kernel; dims = ceil(extent / vsize / vscale).  Host numpy.
-    Raises if the z-padded grid exceeds cfg.grid_capacity."""
+    dilation kernel; dims = ceil(extent / vsize / vscale).  Host numpy; the
+    origin and voxel size land on `device` (the card unless the caller asks
+    for the CPU).  Raises if the z-padded grid exceeds cfg.grid_capacity."""
+    device = resolve(device)
     xyz = np.asarray(xyz)
     mask = np.asarray(point_mask).astype(bool)
     if mask.any():

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against their
-plain PyTorch versions (the shading chain within
+plain PyTorch versions (K-min bit for bit, also on the edge rows of
+torch_port_select_rows.py; the shading chain within
 ops/shading_chain.tolerance, a relative L2 error; the row scan bit for bit
 on int32 and within ops/scan.tolerance on float32), the voxel grid, a
 render and a training step (uncached and cached) on the card against the
@@ -29,6 +30,7 @@ from hybridneuralrendering_tpu_torch.ops import voxel_grid as TVG
 from hybridneuralrendering_tpu_torch.train import pyramid_cache as TPC
 from hybridneuralrendering_tpu_torch.train import state as tstate
 from hybridneuralrendering_tpu_torch.train import step as tstep
+from torch_port_select_rows import edge_rows
 
 
 @pytest.fixture
@@ -62,6 +64,92 @@ def test_k_smallest_kernel_rejects_too_many_columns(cuda):
     d = torch.zeros(4, 1025, device=cuda)
     with pytest.raises(ValueError):
         TS.k_smallest(d, torch.zeros_like(d, dtype=torch.int32), 8)
+
+
+def _kernel_equals_plain(d, ids, k):
+    """One kernel call against the plain version: bit for bit, one launch
+    (none for an empty batch)."""
+    before = TS.k_smallest.launches
+    kd, ki = TS.k_smallest(d, ids, k)
+    pd, pi = TS.k_smallest_plain(d, ids, k)
+    torch.cuda.synchronize()
+    assert TS.k_smallest.launches == before + (d.shape[0] > 0)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    return kd, ki
+
+
+def _edge_rows(cuda, S, C, k):
+    """S rows cycling through the edge rows of torch_port_select_rows."""
+    d, i = edge_rows(C, k, seed=C * 100 + k)
+    reps = -(-S // d.shape[0])
+    d = torch.from_numpy(d).to(cuda).repeat(reps, 1)[:S].contiguous()
+    i = torch.from_numpy(i).to(cuda).repeat(reps, 1)[:S].contiguous()
+    return d, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("C", [1, 5, 31, 32, 33, 63, 64, 65, 702, 1024])
+def test_k_smallest_kernel_on_edge_rows(cuda, C, k):
+    """All-BIG and all-+inf rows, +inf and 3e30 beside BIG, 1..k-1 entries
+    below BIG among BIG columns before and after them, exact ties, k > C:
+    both paths (thread per row to C = 64 and k = 16, warp per row past)."""
+    d, ids = _edge_rows(cuda, 1_000, C, k)
+    _kernel_equals_plain(d, ids, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [0, 1, TS.TILE_ROWS - 1, TS.TILE_ROWS,
+                               TS.TILE_ROWS + 1, 393_216])
+@pytest.mark.parametrize("C", [5, 32])
+def test_k_smallest_kernel_at_tile_edges(cuda, S, C):
+    """Batches around one tile and a serving chunk's; at C = 5 a ragged
+    last tile is not a multiple of 16 bytes and is copied by the threads."""
+    d, ids = _edge_rows(cuda, S, C, 8)
+    _kernel_equals_plain(d, ids, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k,shift", [(33, 8, "row"), (5, 4, "row"),
+                                       (63, 16, "row"), (32, 8, "word"),
+                                       (64, 8, "word")])
+def test_k_smallest_kernel_takes_a_misaligned_view(cuda, C, k, shift):
+    """A contiguous view one row (odd C) or one word into its storage is
+    4-byte but not 16-byte aligned: the kernel reads it as it is."""
+    S = 3 * TS.TILE_ROWS + 7
+    d, ids = _edge_rows(cuda, S + 1, C, k)
+    if shift == "row":
+        d, ids = d[1:], ids[1:]
+    else:
+        d = d.reshape(-1)[1:1 + S * C].view(S, C)
+        ids = ids.reshape(-1)[1:1 + S * C].view(S, C)
+    assert d.is_contiguous() and d.data_ptr() % 16 and ids.data_ptr() % 16
+    _kernel_equals_plain(d, ids, k)
+
+
+@pytest.mark.gpu
+def test_k_smallest_kernel_is_bit_repeatable_on_two_streams(cuda):
+    """Launches on two streams in flight together, and repeated launches,
+    give the first launch's bits."""
+    d, ids = _edge_rows(cuda, 393_216, 32, 8)
+    one = _kernel_equals_plain(d, ids, 8)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    out = []
+    for st in side:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            out += [TS.k_smallest(d, ids, 8) for _ in range(2)]
+    torch.cuda.synchronize()
+    for od, oi in out:
+        assert torch.equal(od, one[0]) and torch.equal(oi, one[1])
+
+
+@pytest.mark.gpu
+def test_k_smallest_kernel_refuses_a_strided_view(cuda):
+    d = torch.zeros(8, 64, device=cuda)[:, ::2]
+    with pytest.raises(ValueError):
+        TS.k_smallest(d, torch.zeros(8, 32, dtype=torch.int32,
+                                     device=cuda), 8)
 
 
 @pytest.mark.gpu

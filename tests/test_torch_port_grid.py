@@ -69,7 +69,7 @@ def test_build_grid_with_masked_points_and_overflow():
     jgeom = JVG.compute_grid_geometry(xyz, mask, q_j)
     jgrid = JVG.build_grid_jit(jnp.asarray(xyz), jnp.asarray(mask), jgeom,
                                q_j)
-    tgeom = TVG.compute_grid_geometry(xyz, mask, q_t)
+    tgeom = TVG.compute_grid_geometry(xyz, mask, q_t, device="cpu")
     tgrid = TVG.build_grid(t(xyz), t(mask), tgeom, q_t)
     for table in GRID_TABLES:
         ours, ref = n(getattr(tgrid, table)), np.asarray(getattr(jgrid,

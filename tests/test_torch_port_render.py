@@ -30,6 +30,7 @@ from hybridneuralrendering_tpu_torch.io import from_jax
 from hybridneuralrendering_tpu_torch.models import aggregator as tagg
 from hybridneuralrendering_tpu_torch.models import fusion as tfusion
 from hybridneuralrendering_tpu_torch.models import renderer as trenderer
+from hybridneuralrendering_tpu_torch.ops import voxel_grid as TVG
 from torch_port_common import (configs, make_batch, make_params, make_scene,
                                n, t)
 
@@ -206,3 +207,6 @@ def test_entry_points_need_cuda_unless_told():
         trenderer.init_params(tc)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsyn.make_synthetic_batch(tc)
+    xyz = np.zeros((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TVG.compute_grid_geometry(xyz, np.ones(2, bool), tc.querier)

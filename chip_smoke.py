@@ -50,18 +50,26 @@ Phases, each printing one JSON progress line:
                  CPU (plain versions), compared; the same on the card with
                  each of six planted kernel faults must be rejected; then a
                  cached step the same way, where a rank scan made exclusive
-                 (the dedup gather's ranks off by one) must be rejected.
+                 (the dedup gather's ranks off by one) must be rejected;
+ 10. eval_cli    the evaluation CLI: a ScanNet-layout scene of 20 frames
+                 of the requests' camera written as PNGs, the trained state
+                 saved with save_checkpoint (load back bit-equal), then
+                 cli.test.main scores 4 whole 480x640 test frames from that
+                 file (per frame 19 K-min and 19 chain forwards, 2 row scans
+                 for the grid of the loaded points, nothing else), writes
+                 their PNGs and scores.txt; 256 pixels of frame 0 again on
+                 the CPU from the same file must agree with the card's, and
+                 the card's render of frame 0 with frame 1's pose must not.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step and prints the kernels that took the
 most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
-the serve, train and train_cached runs), the card as nvidia-smi names it,
-and
-{"ok": true, "device": {...}}.  Any failure exits non-zero before those
-lines.  The port's float32 matmuls and convolutions run without TF32
-(torch.backends.cuda.matmul.allow_tf32 stays False; serving and the
-training step set cudnn's allow_tf32 False).
+the serve, train, train_cached and eval_cli runs), the card as nvidia-smi
+names it, and {"ok": true, "device": {...}}.  Any failure exits non-zero
+before those lines.  The port's float32 matmuls and convolutions run
+without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
+and the training step set cudnn's allow_tf32 False).
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import signal
 import subprocess
 import sys
@@ -80,6 +89,12 @@ DEVICE = "cuda"     # of the scene and requests; a CPU rehearsal sets "cpu"
 NUM_REQUESTS = 4
 RAYS_PER_REQUEST = 16_384
 CHECK_RAYS = 256
+# card against CPU renders: bf16 chains round at other points on the two
+# devices (one bf16 step near 1 is 2**-8); the masks must agree exactly
+CHECK_TOL = 5e-3
+# the eval_cli phase: a scene of 20 frames (4 train, 16 test), 4 of them
+# scored whole
+EVAL_FRAMES, EVAL_SCORED = 20, 4
 TRAIN_STEPS = 5
 # the training-shape segment sum: R * SR * K cotangent rows onto the table;
 # the ids and empty slots a step has (the train phase's census, PERF.md)
@@ -705,27 +720,33 @@ def cpu(x):
     return x
 
 
+def _ray_errors(got, ref):
+    """Per-output max abs error of got against ref, and the count of mask
+    entries that differ."""
+    import torch
+    errs = {}
+    for k, v in ref.items():
+        g = got[k].cpu()
+        errs[k] = (int((g != v).sum()) if v.dtype == torch.bool
+                   else float((g.float() - v.float()).abs().max()))
+    return errs
+
+
+def _rejected(errs, tol):
+    return {k: e for k, e in errs.items()
+            if (isinstance(e, int) and e) or e > tol}
+
+
 def phase_check(cfg, points, grid, params, request, out, grid_c):
     """Rays of request 0 again on the CPU through the plain versions."""
-    import torch
     from hybridneuralrendering_tpu_torch import serve
     pts_c = cpu(points)
     req_c = cpu(dict(request, raydir=request["raydir"][:CHECK_RAYS]))
     t0 = time.perf_counter()
     ref = serve.render_rays(cpu(params), pts_c, grid_c, req_c, cfg)
-    errs = {}
-    for k, v in ref.items():
-        got = out[k][:CHECK_RAYS].cpu()
-        if v.dtype == torch.bool:
-            errs[k] = int((got != v).sum())
-        else:
-            errs[k] = float((got.float() - v.float()).abs().max())
-    # bf16 chains round at other points on the two devices: one bf16 step
-    # near 1 is 2**-8; the masks must agree exactly
-    tol = 5e-3
-    bad = {k: e for k, e in errs.items()
-           if (isinstance(e, int) and e) or e > tol}
-    log("check", rays=CHECK_RAYS, max_abs_err=errs, tolerance=tol,
+    errs = _ray_errors({k: v[:CHECK_RAYS] for k, v in out.items()}, ref)
+    bad = _rejected(errs, CHECK_TOL)
+    log("check", rays=CHECK_RAYS, max_abs_err=errs, tolerance=CHECK_TOL,
         seconds=time.perf_counter() - t0)
     if bad:
         raise AssertionError(f"card and CPU renders differ: {bad}")
@@ -1574,6 +1595,159 @@ def phase_train_check(cfg, points, grid, grid_c, params):
     check("train_check_cached", True, _cached_faults())
 
 
+def _cpu_grid(points, cfg):
+    from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+    geom = VG.compute_grid_geometry(points.xyz.numpy(), points.mask.numpy(),
+                                    cfg.querier, device="cpu")
+    return VG.build_grid(points.xyz, points.mask, geom, cfg.querier)
+
+
+def phase_eval_cli(cfg, st, grid):
+    """The evaluation CLI on the card: a ScanNet-layout scene of
+    EVAL_FRAMES frames of the requests' camera (EVAL_FRAMES // 5 train
+    frames, the rest test) in a temporary directory; the trained state
+    `st` saved with save_checkpoint, loaded back on the card and held leaf
+    for leaf bit-equal; then cli.test.main scores EVAL_SCORED test frames
+    (whole 480x640 frames: 19 chunks of 16,384 rays, the last 12,288) from
+    that file, every kernel's launch count read over exactly that call.
+    Then CHECK_RAYS pixels of test frame 0 again on the CPU, from the same
+    checkpoint and dataset, against the card's pixels; the card's render
+    of frame 0 with frame 1's pose (through `grid`, the scene's grid: the
+    state's xyz lanes are the scene's) must be rejected by the same
+    check."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.cli import test as cli_test
+    from hybridneuralrendering_tpu_torch.data import scannet, synthetic
+    from hybridneuralrendering_tpu_torch.train import checkpoint as ckpt
+    H, W = cfg.image_hw
+    chunks = -(-H * W // cfg.sampling.eval_rays)
+    with tempfile.TemporaryDirectory(prefix="eval_cli_") as root:
+        t0 = time.perf_counter()
+        synthetic.write_scannet_scene(root, cfg, "synth", EVAL_FRAMES)
+        write_s = time.perf_counter() - t0
+        ck_root = os.path.join(root, "ckpts")
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(
+            os.path.join(ck_root, "synth_full", "ckpt"), st, best_psnr=0.0)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back, _ = ckpt.load_checkpoint(path, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if back.points.table.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"load_checkpoint did not load onto "
+                                 f"{DEVICE}")
+        saved, loaded = ckpt.flatten_state(st), ckpt.flatten_state(back)
+        differ = [k for k in saved if k not in loaded
+                  or saved[k].dtype != loaded[k].dtype
+                  or not np.array_equal(saved[k], loaded[k])]
+        if differ or len(loaded) != len(saved):
+            raise AssertionError(f"checkpoint round trip changed {differ}")
+        del back, saved, loaded
+
+        frames, frames_hit, first = [], [], {}
+
+        def timed_frame(real):
+            def render_full_frame(*a, **kw):
+                t = time.perf_counter()
+                img = real(*a, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                if img.shape != (H, W, 3) or not torch.isfinite(img).all():
+                    raise AssertionError(f"frame {len(frames)}: image "
+                                         f"{tuple(img.shape)} not finite")
+                frames.append(dict(ms=ms, rays_per_s=H * W / (ms / 1e3)))
+                return img
+            return render_full_frame
+
+        def hit_share(real):
+            def render_rays(*a, **kw):
+                out = real(*a, **kw)
+                frames_hit.append(float(out["ray_mask"].float().mean()))
+                if not first:
+                    first.update(out)
+                return out
+            return render_rays
+
+        argv = ["--preset", "serve", "--data-root", root, "--scan", "synth",
+                "--checkpoints-dir", ck_root, "--name", "synth_full",
+                "--num-frames", str(EVAL_SCORED)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()    # the smoke's own tensors
+        reset_launches()
+        t0 = time.perf_counter()
+        with _Planted(serve, "render_full_frame", timed_frame), \
+                _Planted(serve, "render_rays", hit_share):
+            scores = cli_test.main(argv)
+        main_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # per frame one K-min and one chain forward a chunk; the grid build
+        # from the loaded points two row scans; nothing of training
+        want = dict.fromkeys(launches, 0)
+        want.update(k_smallest=EVAL_SCORED * chunks,
+                    shading_chain_fwd=EVAL_SCORED * chunks, cumsum_rows=2)
+        if launches != want:
+            raise AssertionError(f"cli.test launched {launches}, want {want}")
+        out_dir = os.path.join(ck_root, "synth_full_test")
+        with open(os.path.join(out_dir, "scores.txt")) as f:
+            written = {k: float(v) for k, v in
+                       (line.rstrip("\n").split(": ") for line in f)}
+        pngs = sorted(os.listdir(os.path.join(out_dir, "images")))
+        if (written != scores or len(frames) != EVAL_SCORED
+                or len(pngs) != 2 * EVAL_SCORED
+                or not all(math.isfinite(v) for v in scores.values())):
+            raise AssertionError(f"scores.txt {written}, returned {scores}, "
+                                 f"{len(frames)} frames, PNGs {pngs}")
+
+        # CHECK_RAYS pixels of test frame 0, spread over the frame, on the
+        # CPU from the same file and dataset
+        t0 = time.perf_counter()
+        pick = np.linspace(0, H * W - 1, CHECK_RAYS).astype(np.int64)
+        st_c, _ = ckpt.load_checkpoint(path, cfg, device="cpu")
+        grid_c = _cpu_grid(st_c.points, cfg)
+        ds = scannet.ScannetScene(root, "synth", cfg, "test")
+        pix = np.stack([pick % W, pick // W], -1).astype(np.float32)[:, None]
+        ref = serve.render_rays(
+            st_c.params, st_c.points, grid_c,
+            scannet.device_batch(ds.get_batch(0, pixelcoords=pix), "cpu"),
+            cfg)
+        card = {k: v[torch.as_tensor(pick, device=v.device)]
+                for k, v in first.items()}
+        errs = _ray_errors(card, ref)
+        # the planted fault: frame 0 rendered on the card with frame 1's pose
+        b0 = ds.get_batch(0, pixelcoords=pix)
+        b1 = ds.get_batch(1, pixelcoords=pix)
+        fault = dict(b0, campos=b1["campos"], camrotc2w=b1["camrotc2w"],
+                     raydir=b1["raydir"])
+        wrong = serve.render_rays(st.params, st.points, grid,
+                                  scannet.device_batch(fault, DEVICE), cfg)
+        fault_errs = _ray_errors(wrong, ref)
+        check_s = time.perf_counter() - t0
+    log("eval_cli", frames=frames, scores=scores, launches=launches,
+        ray_hit_share=sum(frames_hit) / len(frames_hit),
+        mean_frame_ms=sum(f["ms"] for f in frames) / len(frames),
+        main_seconds=main_s, max_memory_allocated=peak,
+        memory_allocated_before=held,
+        scene_write_seconds=write_s, save_seconds=save_s,
+        load_seconds=load_s, checkpoint_bytes=ckpt_bytes,
+        check_rays=CHECK_RAYS,
+        check_max_abs_err=errs, check_tolerance=CHECK_TOL,
+        fault_max_abs_err=fault_errs, check_seconds=check_s)
+    bad = _rejected(errs, CHECK_TOL)
+    if bad:
+        raise AssertionError(f"card and CPU frames differ: {bad}")
+    if not _rejected(fault_errs, CHECK_TOL):
+        raise AssertionError(f"frame 0 with frame 1's pose passed the "
+                             f"check: {fault_errs}")
+    return launches
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged):
     """One more training step and one more cached step under
     torch.profiler."""
@@ -1619,13 +1793,15 @@ def main(argv=None) -> int:
     st, staged, cached_launches = phase_train_cached(tcfg, st, grid, bank,
                                                      train_ms)
     phase_train_check(tcfg, points, grid, grid_c, params)
+    eval_launches = phase_eval_cli(cfg, st, grid)
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank, staged)
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
     launches = {k: serve_launches[k] + train_launches[k]
-                + cached_launches[k] for k in serve_launches}
+                + cached_launches[k] + eval_launches[k]
+                for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 
     def row(name, replaces, m):

@@ -1,0 +1,1 @@
+"""See the module of the same name in hybridneuralrendering_tpu/cli."""

@@ -6,7 +6,10 @@ render and training paths need (querier, points, aggregator, render, blur,
 sampling, loss, optim), with the same fields and defaults, so that a preset
 here equals the JAX preset of the same name field by field
 (tests/test_torch_port_config.py checks it).  The probe (grow/prune) and
-parallel sub-configs come with the slices that use them.
+parallel sub-configs come with the slices that use them.  PRESETS carries
+the JAX package's names; the presets whose knobs the port does not run yet
+(the learnable blur kernel, the NeRF-synthetic workloads) raise
+NotImplementedError naming the ROADMAP item that ports them.
 
 `serve_config()` is the serving workload and `train_config()` the training
 workload: `scannet_full` at the shapes of the JAX package's benchmark scene
@@ -345,9 +348,114 @@ def tiny_test() -> Config:
     )
 
 
+def scannet_hybrid(scan: str = "scene0241_01") -> Config:
+    """Hybrid rendering, no blur sim / frame weights (scene241_hybrid.sh)."""
+    return Config(
+        name=f"{scan}_hybrid",
+        blur=BlurConfig(add_blur_sim=False),
+        loss=LossConfig(use_frame_weight=False),
+        sampling=SamplingConfig(eval_chunk_rays=16384),
+    )
+
+
+def scannet_scene101(scan: str = "scene0101_04") -> Config:
+    """scene0101_04 full pipeline (scene101_full.sh): scene241_full with the
+    larger point budget (max_o=2,000,000)."""
+    base = scannet_full(scan)
+    return base.replace(
+        querier=dataclasses.replace(base.querier, max_o=2_000_000,
+                                    Ps=32, max_nodes=6_000_000),
+        points=PointsConfig(num_points=2_000_000),
+    )
+
+
+def scannet_livingroom(scan: str = "livingroom") -> Config:
+    """livingroom_full.sh: scene241 settings with dilation_max=6 and the
+    symmetric-only blur-kernel bank (version 2)."""
+    base = scannet_full(scan)
+    return base.replace(
+        sampling=dataclasses.replace(base.sampling, dilation_max=6),
+        blur=BlurConfig(add_blur_sim=True, blur_kernel_version=2),
+    )
+
+
+def scannet_vangoroom(scan: str = "vangoroom") -> Config:
+    """vangoroom_full.sh: the settings of livingroom_full.sh."""
+    return scannet_livingroom(scan)
+
+
+def fixture_room(scan: str = "roomsim") -> Config:
+    """scannet_full fitted to the analytic room scene of
+    tools/make_fixture_scene.py (the trained fixture checkpoint's config):
+    canonical vsize, SR, K and widths; the scene's ranges, capacities and
+    240x320 frames."""
+    base = scannet_full(scan)
+    return base.replace(
+        name=f"{scan}_full",
+        querier=dataclasses.replace(
+            base.querier, ranges=(-2.0, -1.5, -0.5, 2.0, 1.5, 3.6),
+            grid_capacity=14_000_000, max_o=400_000,
+            Ps=32, max_nodes=2_500_000),
+        points=PointsConfig(num_points=400_000),
+        render=RenderConfig(near_plane=0.1, far_plane=4.5),
+        image_hw=(240, 320),
+    )
+
+
+def _unported(name: str, item: str):
+    def preset(*args, **kw) -> Config:
+        raise NotImplementedError(
+            f"preset {name} is not ported yet (ROADMAP Queue 1 {item})")
+    preset.__name__ = name
+    return preset
+
+
+LEARNABLE_BLUR_ITEM = "item 8, the learnable blur kernel"
+NERF_ITEM = "items 8 and 11, remat and chunked chains for the NeRF workload"
+
+
+def apply_blur_overrides(cfg: Config, blur_mode: str = "preset",
+                         frame_weight: int = -1) -> Config:
+    """The CLI's blur overrides (JAX config.apply_blur_overrides):
+    blur_mode 'preset' keeps the preset's setting, 'off' and 'bank' force
+    that simulation; frame_weight -1 keeps the preset's, 0 off, 1 on.
+    'learnable' raises NotImplementedError: the learnable blur kernel is
+    not ported."""
+    if blur_mode == "off":
+        cfg = cfg.replace(
+            blur=dataclasses.replace(cfg.blur, add_blur_sim=False,
+                                     learnable=False),
+            agg=dataclasses.replace(cfg.agg, learnable_blur_kernel=False))
+    elif blur_mode == "bank":
+        cfg = cfg.replace(
+            blur=dataclasses.replace(cfg.blur, add_blur_sim=True,
+                                     learnable=False),
+            agg=dataclasses.replace(cfg.agg, learnable_blur_kernel=False))
+    elif blur_mode == "learnable":
+        raise NotImplementedError(
+            f"blur mode learnable is not ported yet (ROADMAP Queue 1 "
+            f"{LEARNABLE_BLUR_ITEM})")
+    elif blur_mode != "preset":
+        raise KeyError(f"unknown blur_mode {blur_mode}")
+    if frame_weight >= 0:
+        cfg = cfg.replace(loss=dataclasses.replace(
+            cfg.loss, use_frame_weight=bool(frame_weight)))
+    return cfg
+
+
 PRESETS = {
     "scannet_full": scannet_full,
+    "scannet_hybrid": scannet_hybrid,
+    "scannet_learnable": _unported("scannet_learnable", LEARNABLE_BLUR_ITEM),
+    "scannet_scene101": scannet_scene101,
+    "scannet_livingroom": scannet_livingroom,
+    "scannet_vangoroom": scannet_vangoroom,
+    "nerf_synth_points": _unported("nerf_synth_points", NERF_ITEM),
+    "nerf_synth_hybrid": _unported("nerf_synth_hybrid", NERF_ITEM),
+    "fixture_nerf_points": _unported("fixture_nerf_points", NERF_ITEM),
+    "fixture_nerf_hybrid": _unported("fixture_nerf_hybrid", NERF_ITEM),
+    "fixture_room": fixture_room,
+    "tiny": tiny_test,
     "serve": serve_config,
     "train": train_config,
-    "tiny": tiny_test,
 }

@@ -2,7 +2,13 @@
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
+
+# batch keys that stay on the host (frame and view ids)
+HOST_KEYS = ("vid", "nearest_vids")
 
 
 def resolve(device="cuda") -> torch.device:
@@ -14,6 +20,14 @@ def resolve(device="cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def device_batch(batch: Dict, device="cuda") -> Dict:
+    """A host batch (numpy arrays, as data/scannet.ScannetScene.get_batch
+    gives) as tensors on `device`, without HOST_KEYS."""
+    dev = resolve(device)
+    return {k: torch.as_tensor(np.asarray(v), device=dev)
+            for k, v in batch.items() if k not in HOST_KEYS}
 
 
 def no_tf32():

@@ -108,7 +108,8 @@ def _check_supported(cfg: AggregatorConfig, train: bool = False) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
-def init(gen: torch.Generator, cfg: AggregatorConfig, device="cpu") -> Dict:
+def init(gen: torch.Generator, cfg: AggregatorConfig,
+         device="cuda") -> Dict:
     """Random parameters of the shapes the JAX package's aggregator.init
     makes (xavier-uniform from `gen`)."""
     _check_supported(cfg)

@@ -1,11 +1,12 @@
 """Serving: deterministic eval renders of ray requests
-(JAX: hybridneuralrendering_tpu/train/step.py:eval_step and the chunk loop
-of cli/test.py:render_full_frame).
+(JAX: hybridneuralrendering_tpu/train/step.py:eval_step and
+cli/test.py:render_full_frame).
 
 A request is a batch dict (see models/renderer.render) whose 'raydir' may
 hold any number of rays.  `render_rays` computes the nearest views' pyramid
 features once per request, then renders the rays in chunks of
 cfg.sampling.eval_rays and concatenates the per-ray outputs.
+`render_full_frame` renders every pixel of a dataset frame as one request.
 
 Float32 stays float32 on the card: matmuls keep torch's default
 (torch.backends.cuda.matmul.allow_tf32 False) and both entry points run
@@ -20,7 +21,7 @@ from typing import Dict
 import torch
 
 from hybridneuralrendering_tpu_torch.config import Config
-from hybridneuralrendering_tpu_torch.device import no_tf32
+from hybridneuralrendering_tpu_torch.device import device_batch, no_tf32
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.models import renderer
 from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
@@ -58,3 +59,28 @@ def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             for k in RAY_OUTPUTS:
                 outs[k].append(out[k])
     return {k: torch.cat(v) for k, v in outs.items()}
+
+
+def render_full_frame(params: Dict, points: npts.NeuralPoints,
+                      grid: PointGrid, batch: Dict, cfg: Config,
+                      device="cuda") -> torch.Tensor:
+    """Every pixel of one frame -> [H, W, 3] colours on `device` (the card
+    unless the caller asks for the CPU).  `batch` is the frame's host
+    batch over all cfg.image_hw pixels in row-major order, as a test
+    split's ScannetScene.get_batch(idx) gives it.
+
+    The frame is one request through render_rays, so the nearest views'
+    pyramid runs once a frame.  The JAX CLI pads its last chunk to the
+    full chunk by repeating the last pixel and runs the pyramid in every
+    chunk; neither changes a valid pixel.  Here the last chunk is ragged:
+    12,288 of 16,384 rays at 480x640."""
+    if cfg.render.bgmodel.endswith("plane"):
+        raise NotImplementedError("plane backgrounds (bg_ray) are not "
+                                  "ported yet")
+    H, W = cfg.image_hw
+    request = device_batch(batch, device)
+    if request["raydir"].shape[0] != H * W:
+        raise ValueError(f"a frame of {H}x{W} has {H * W} rays, the batch "
+                         f"{request['raydir'].shape[0]}")
+    out = render_rays(params, points, grid, request, cfg)
+    return out["coarse_raycolor"].reshape(H, W, 3)

@@ -25,7 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from hybridneuralrendering_tpu_torch.config import Config
-from hybridneuralrendering_tpu_torch.device import no_tf32
+from hybridneuralrendering_tpu_torch.device import HOST_KEYS, no_tf32
 from hybridneuralrendering_tpu_torch.models import blur as blur_mod
 from hybridneuralrendering_tpu_torch.models import losses as losses_mod
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
@@ -34,9 +34,6 @@ from hybridneuralrendering_tpu_torch.ops.adam import adam_scalars, adam_table
 from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
 from hybridneuralrendering_tpu_torch.train.state import (
     TrainState, lr_schedule, tree_leaves, tree_map)
-
-HOST_KEYS = ("vid", "nearest_vids")
-
 
 def device_batch(batch: Dict) -> Dict:
     """The batch without its host-only keys (frame and view ids)."""

@@ -25,3 +25,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs an NVIDIA GPU (the port's CUDA kernels); "
         "skips where torch.cuda.is_available() is false")
+    config.addinivalue_line(
+        "markers", "slow: runs for minutes on the CPU; Tier-1 deselects it "
+        "(-m 'not slow')")

@@ -96,3 +96,99 @@ def test_train_config_is_the_bench_training_shape(monkeypatch):
     assert tc.blur.add_blur_sim and tc.loss.use_frame_weight
     assert (tc.querier.z_depth_dim, tc.querier.SR, tc.querier.K) == \
         (400, 24, 8)
+
+
+EVAL_PRESETS = ["scannet_full", "scannet_hybrid", "scannet_scene101",
+                "scannet_livingroom", "scannet_vangoroom", "fixture_room",
+                "tiny"]
+ALL_SUBCONFIGS = SUBCONFIGS + TRAIN_SUBCONFIGS
+
+
+@pytest.mark.parametrize("name", EVAL_PRESETS)
+def test_named_presets_equal(name):
+    """PRESETS[name] of the port equals the JAX package's, field by field,
+    with and without a scan name where the preset takes one."""
+    jp, tp = JC.PRESETS[name], TC.PRESETS[name]
+    calls = [()] if name == "tiny" else [(), ("scene0000_00",)]
+    for args in calls:
+        jc, tc = jp(*args), tp(*args)
+        for sub in ALL_SUBCONFIGS:
+            assert _fields(getattr(tc, sub)) == _fields(getattr(jc, sub)), \
+                (name, sub)
+        for f in ("name", "image_hw", "seed"):
+            assert getattr(tc, f) == getattr(jc, f), (name, f)
+
+
+def test_presets_carry_the_jax_names():
+    assert set(JC.PRESETS) <= set(TC.PRESETS)
+
+
+@pytest.mark.parametrize("name,item", [
+    ("scannet_learnable", "item 8"), ("nerf_synth_points", "items 8 and 11"),
+    ("nerf_synth_hybrid", "items 8 and 11"),
+    ("fixture_nerf_points", "items 8 and 11"),
+    ("fixture_nerf_hybrid", "items 8 and 11")])
+def test_unported_presets_raise(name, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        TC.PRESETS[name]()
+    with pytest.raises(NotImplementedError, match=name):
+        TC.PRESETS[name]("scan")
+
+
+@pytest.mark.parametrize("mode", ["preset", "off", "bank"])
+@pytest.mark.parametrize("frame_weight", [-1, 0, 1])
+def test_blur_overrides_equal(mode, frame_weight):
+    for name in ("scannet_full", "scannet_hybrid", "tiny"):
+        jc = JC.apply_blur_overrides(JC.PRESETS[name](), mode, frame_weight)
+        tc = TC.apply_blur_overrides(TC.PRESETS[name](), mode, frame_weight)
+        for sub in ALL_SUBCONFIGS:
+            assert _fields(getattr(tc, sub)) == _fields(getattr(jc, sub)), \
+                (name, sub)
+
+
+def test_blur_override_learnable_and_unknown_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        TC.apply_blur_overrides(TC.scannet_full(), "learnable")
+    with pytest.raises(KeyError):
+        TC.apply_blur_overrides(TC.scannet_full(), "sometimes")
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names no jax and no module of the JAX package in any
+    import, at the top or inside a function."""
+    import ast
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "hybridneuralrendering_tpu_torch.cli" in names
+    bad = [n for n in names if n.split(".")[0] in (
+        "jax", "jaxlib", "hybridneuralrendering_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """Without CUDA (here), and alone in a directory without the port, the
+    smoke exits non-zero and prints no result line."""
+    import shutil
+
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("the card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "chip_smoke.py")
+    cwd = root
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout

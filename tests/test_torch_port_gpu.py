@@ -750,3 +750,66 @@ def test_cached_train_step_on_card_matches_cpu(cuda):
     for got, ref in ((kg, cg), (kn, cn)):
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
                                    atol=float(1e-5 * ref.abs().max()))
+
+
+# ------------------------------------------------ the evaluation CLI's I/O
+
+@pytest.mark.gpu
+def test_png_and_metrics_on_card_tensors(cuda, tmp_path):
+    from hybridneuralrendering_tpu_torch.io import png
+    from hybridneuralrendering_tpu_torch.utils import metrics, visualizer
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.rand(48, 64, 3, generator=g, device=cuda)
+    ref = torch.rand(48, 64, 3, generator=g, device=cuda)
+    p = str(tmp_path / "a.png")
+    png.write(p, visualizer.to8b(img))
+    got = torch.as_tensor(png.read(p))
+    assert torch.equal(got, torch.as_tensor(visualizer.to8b(img.cpu())))
+    for fn in (metrics.psnr, metrics.ssim, metrics.rmse):
+        assert fn(img, ref) == pytest.approx(fn(img.cpu(), ref.cpu()),
+                                             rel=1e-12)
+
+
+def _tiny_state(dev):
+    cfg = TC.tiny_test()
+    points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+    params = renderer.init_params(cfg, seed=0, device=dev)
+    st = tstate.create_train_state(params, points, cfg, device=dev)
+    st.opt_pts.mu.normal_(generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+    st.step = st.opt_net.count = st.opt_pts.count = 7
+    return cfg, st, grid
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    import numpy as np
+    from hybridneuralrendering_tpu_torch.train import checkpoint as ck
+    cfg, st, _ = _tiny_state(cuda)
+    path = ck.save_checkpoint(str(tmp_path), st, best_psnr=20.5)
+    back, best = ck.load_checkpoint(path, cfg)       # the card by default
+    assert best == 20.5 and back.points.table.device.type == "cuda"
+    assert back.params["aggregator"]["alpha"][0]["w"].device.type == "cuda"
+    saved, loaded = ck.flatten_state(st), ck.flatten_state(back)
+    assert sorted(saved) == sorted(loaded)
+    for k in saved:
+        assert saved[k].dtype == loaded[k].dtype, k
+        assert np.array_equal(saved[k], loaded[k]), k
+
+
+@pytest.mark.gpu
+def test_render_full_frame_equals_render_rays_on_card(cuda, tmp_path):
+    from hybridneuralrendering_tpu_torch.data import scannet
+    cfg, st, grid = _tiny_state(cuda)
+    cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling,
+                                                   eval_chunk_rays=1000))
+    synthetic.write_scannet_scene(str(tmp_path), cfg, "synth", n_frames=8)
+    ds = scannet.ScannetScene(str(tmp_path), "synth", cfg, "test")
+    before = TS.k_smallest.launches
+    img = serve.render_full_frame(st.params, st.points, grid,
+                                  ds.get_batch(0), cfg)
+    assert TS.k_smallest.launches - before == 4     # 3,072 rays by 1,000
+    ref = serve.render_rays(st.params, st.points, grid,
+                            scannet.device_batch(ds.get_batch(0)), cfg)
+    assert img.device.type == "cuda"
+    assert torch.equal(img, ref["coarse_raycolor"].reshape(48, 64, 3))

@@ -101,3 +101,54 @@ def make_params(jc, seed=0, alpha_bias=0.0):
     tree["aggregator"]["alpha"][-1]["b"] += np.float32(alpha_bias)
     return (jax.tree_util.tree_map(jnp.asarray, tree),
             from_jax.params_from_numpy(tree, device=CPU))
+
+
+def write_fake_scannet(root, scan="scene_test", n_frames=12, hw=(48, 64),
+                       ext="jpg", blur_list=(), frame_weights=None,
+                       bad_pose=(), seed=0):
+    """A miniature scene in the reference's exported layout under
+    root/scan (tests/test_integration.py's fake scene): the camera slides
+    along x looking down +z at a wall 2 m away; colour frames of seeded
+    noise (.jpg through PIL, .png through imageio), 16-bit depth PNGs,
+    4x4 intrinsics.  `blur_list` goes to exported/blur_list.txt,
+    `frame_weights` to root/frame_weights_step5, and the frames of
+    `bad_pose` get a pose past the validity filter."""
+    import os
+
+    import imageio.v2 as imageio
+    from PIL import Image
+    base = os.path.join(str(root), scan, "exported")
+    for sub in ("color", "pose", "depth", "intrinsic"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    H, W = hw
+    intr = np.array([[40.0 * W / 64, 0, W / 2], [0, 40.0 * W / 64, H / 2],
+                     [0, 0, 1]])
+    k4 = np.block([[intr, np.zeros((3, 1))], [np.zeros((1, 3)), 1]])
+    for name in ("intrinsic_color", "intrinsic_depth"):
+        np.savetxt(os.path.join(base, f"intrinsic/{name}.txt"), k4)
+    rng = np.random.default_rng(seed)
+    for i in range(n_frames):
+        c2w = np.eye(4)
+        c2w[0, 3] = 0.05 * i
+        if i in bad_pose:
+            c2w[2, 3] = 100.0
+        np.savetxt(os.path.join(base, f"pose/{i}.txt"), c2w)
+        img = rng.uniform(0, 255, (H, W, 3)).astype(np.uint8)
+        path = os.path.join(base, f"color/{i}.{ext}")
+        if ext == "jpg":
+            Image.fromarray(img).save(path)
+        else:
+            imageio.imwrite(path, img)
+        depth_mm = np.full((H, W), 2000, np.uint16)
+        depth_mm[: H // 4] = 9000          # beyond 8 m: filtered out
+        imageio.imwrite(os.path.join(base, f"depth/{i}.png"), depth_mm)
+    if blur_list:
+        with open(os.path.join(base, "blur_list.txt"), "w") as f:
+            f.write("".join(f"{v}\n" for v in blur_list))
+    if frame_weights is not None:
+        os.makedirs(os.path.join(str(root), "frame_weights_step5"),
+                    exist_ok=True)
+        np.save(os.path.join(str(root), "frame_weights_step5",
+                             f"{scan}_frame_weight_step5.npy"),
+                np.asarray(frame_weights))
+    return str(root), scan

@@ -59,15 +59,29 @@ Phases, each printing one JSON progress line:
                  for the grid of the loaded points, nothing else), writes
                  their PNGs and scores.txt; 256 pixels of frame 0 again on
                  the CPU from the same file must agree with the card's, and
-                 the card's render of frame 0 with frame 1's pose must not.
+                 the card's render of frame 0 with frame 1's pose must not;
+ 11. train_cli   the training CLI at train_config() on a ScanNet-layout
+                 scene of 20 frames of one wall (constant 2.5 m depth PNGs,
+                 4 train frames), bootstrapped from its sensor depth with a
+                 hole carved by --drop-box and a cap below capacity: 420
+                 steps (uncached 0-39 and 400-419, cached 40-399, the cache
+                 emptied at 400), a probe-and-grow at 250 that must add
+                 points, a prune at 300 that must remove them, an eval of
+                 one test frame and a save at 410, the final save; then a
+                 second call resumes from it for 3 steps of 2 frames
+                 (train_step_multi).  Each call's launches must equal what
+                 its schedule gives (_predicted_launches); it prints the
+                 bootstrap, step (bare and loop wall), probe, prune,
+                 rebuild, eval, save and resume times and the run's log
+                 events.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step and prints the kernels that took the
 most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
-the serve, train, train_cached and eval_cli runs), the card as nvidia-smi
-names it, and {"ok": true, "device": {...}}.  Any failure exits non-zero
-before those lines.  The port's float32 matmuls and convolutions run
+the serve, train, train_cached, eval_cli and train_cli runs), the card as
+nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
+non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
 and the training step set cudnn's allow_tf32 False).
 """
@@ -1748,6 +1762,333 @@ def phase_eval_cli(cfg, st, grid):
     return launches
 
 
+# the train_cli phase: cli.train.main on a ScanNet-layout scene of
+# EVAL_FRAMES frames (constant 2.5 m depth: one wall at z = 0) at
+# train_config(); a hole carved in the wall for the probe to find, a cap
+# below the 600,000 capacity for growth to fill; grow at 250, prune at 300,
+# eval (and save) at 410, the final save at 420; the burst of steps 400-419
+# follows the cached steps 40-399, so the cache is emptied at 400
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS, TRAIN_CLI_FRAMES = 420, 3, 2
+TRAIN_CLI_PROBE, TRAIN_CLI_PRUNE, TRAIN_CLI_TEST = 250, 300, 410
+TRAIN_CLI_CAP = 300_000
+TRAIN_CLI_DROP_BOX = (-0.4, -0.3, -0.05, 0.4, 0.3, 0.05)
+TRAIN_CLI_FLAGS = ["--prob-freq", str(TRAIN_CLI_PROBE), "--prob-frames",
+                   "2", "--prune-iter", str(TRAIN_CLI_PRUNE),
+                   "--prune-thresh", "0.5", "--test-freq",
+                   str(TRAIN_CLI_TEST), "--test-num", "1", "--save-freq",
+                   "0", "--bootstrap-cap", str(TRAIN_CLI_CAP), "--drop-box",
+                   *map(str, TRAIN_CLI_DROP_BOX)]
+# train_config() with prob_thresh lowered from 0.7 to 0 (registered by
+# phase_train_cli): random weights' max opacities at the hole's border stay
+# under 0.7 after 250 steps (the phase prints them), and the probe must grow
+TRAIN_CLI_PRESET = "train_lifecycle"
+TRAIN_CLI_PROB_THRESH = 0.0
+
+
+def _stats(ms):
+    ms = sorted(ms)
+    return dict(n=len(ms), median=ms[len(ms) // 2] if ms else None,
+                min=ms[0] if ms else None, max=ms[-1] if ms else None)
+
+
+class _Recorder:
+    """Wraps the trainer's entry points for one cli.train.main call: times
+    each call (synchronizing after it) and counts what the launch
+    prediction needs (steps by kind and frames, grid builds, grows with
+    new points, probed frames, evaluated frames)."""
+
+    def __init__(self):
+        self.steps = []          # (cached, frames, t_enter, ms)
+        self.events = []         # (name, seconds, detail)
+        self.grids = self.grows = self.probe_frames = self.eval_frames = 0
+        self.invalidations = 0
+
+    def timed(self, name, detail=None):
+        import torch
+
+        def make(real):
+            def fn(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                self.events.append((name, time.perf_counter() - t0,
+                                    detail(a, kw, out) if detail else None))
+                return out
+            return fn
+        return make
+
+    def step(self, frames):
+        import torch
+
+        def make(real):
+            def fn(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                self.steps.append((kw.get("img_feat_staged") is not None,
+                                   frames, t0,
+                                   (time.perf_counter() - t0) * 1e3))
+                return out
+            return fn
+        return make
+
+    def counting(self, attr, count=lambda a, kw: True):
+        def make(real):
+            def fn(*a, **kw):
+                if count(a, kw):
+                    setattr(self, attr, getattr(self, attr) + 1)
+                return real(*a, **kw)
+            return fn
+        return make
+
+    def planted(self):
+        from hybridneuralrendering_tpu_torch import serve
+        from hybridneuralrendering_tpu_torch.cli import train as cli_train
+        from hybridneuralrendering_tpu_torch.models import neural_points
+        from hybridneuralrendering_tpu_torch.ops import voxel_grid
+        from hybridneuralrendering_tpu_torch.train import checkpoint
+        from hybridneuralrendering_tpu_torch.train import lifecycle
+        from hybridneuralrendering_tpu_torch.train import step
+        from hybridneuralrendering_tpu_torch.train.pyramid_cache import (
+            PyramidCache)
+        return [
+            _Planted(PyramidCache, "invalidate", self.counting(
+                "invalidations")),
+            _Planted(step, "train_step", self.step(1)),
+            _Planted(step, "train_step_multi", self.step(None)),
+            _Planted(voxel_grid, "build_grid", self.counting("grids")),
+            _Planted(neural_points, "grow", self.counting(
+                "grows", lambda a, kw: a[-1].shape[0] > 0)),
+            _Planted(lifecycle, "probe_frame", self.counting(
+                "probe_frames")),
+            _Planted(serve, "render_full_frame", self.timed(
+                "eval_frame")),
+            _Planted(lifecycle, "holes_from_maps", self.timed(
+                "holes", lambda a, kw, out: _hole_stats(*a[:2], out))),
+            _Planted(lifecycle, "probe_and_grow", self.timed(
+                "probe_and_grow", lambda a, kw, out: dict(
+                    added=out[2], live=out[0].num_live))),
+            _Planted(lifecycle, "prune_and_rebuild", self.timed(
+                "prune_and_rebuild", lambda a, kw, out: dict(
+                    removed=a[0].num_live - out[0].num_live,
+                    live=out[0].num_live))),
+            _Planted(cli_train, "evaluate", self.timed(
+                "evaluate", lambda a, kw, out: dict(psnr=out))),
+            _Planted(cli_train, "bootstrap_points", self.timed(
+                "bootstrap", lambda a, kw, out: dict(points=len(out)))),
+            _Planted(checkpoint, "save_checkpoint", self.timed(
+                "save", lambda a, kw, out: dict(file=os.path.basename(out),
+                                                bytes=os.path.getsize(out)))),
+            _Planted(checkpoint, "load_checkpoint", self.timed("load")),
+        ]
+
+    def of(self, name):
+        return [e for e in self.events if e[0] == name]
+
+
+def _hole_stats(maps, bg, out):
+    """The max opacities of a probed frame's hit pixels next to a miss
+    (the candidates before the prob_thresh test) and the points taken."""
+    import numpy as np
+    from hybridneuralrendering_tpu_torch.train import lifecycle
+    hit = maps["ray_mask"][..., 0] > 0
+    miss = ~hit & (np.linalg.norm(maps["gt_image"] - bg, axis=-1) > 0.002)
+    op = maps["ray_max_shading_opacity"][..., 0][
+        hit & lifecycle.bloat_mask(miss, 1)]
+    q = np.quantile(op, [0.0, 0.5, 0.99, 1.0]).tolist() if op.size else []
+    return dict(miss_pixels=int(miss.sum()), border_pixels=int(op.size),
+                opacity_min_median_p99_max=q, taken=len(out[0]))
+
+
+def _cli_call(cli_train, argv, frames):
+    """One cli.train.main call under a _Recorder; every kernel's launches
+    over exactly the call."""
+    import contextlib
+    import torch
+    rec = _Recorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in rec.planted():
+            stack.enter_context(p)
+        st = cli_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec.steps = [(c, f or frames, t, ms) for c, f, t, ms in rec.steps]
+    return st, rec, read_launches(), seconds, \
+        torch.cuda.max_memory_allocated()
+
+
+def _predicted_launches(cfg, rec, launches, probe_chunks, eval_chunks):
+    """Each kernel's launches that the call's schedule gives: per frame of
+    a step one K-min, chain forward, chain_bwd and chain_dw, two segment
+    sums uncached and one cached (the point table's; the pyramid map's
+    only in the burst), one row scan cached (the dedup gather's ranks);
+    per step one table Adam; per probed and per evaluated frame one K-min
+    and one chain forward a chunk; two row scans a grid build (voxels and
+    supervoxels) and two a grow (the new points' and the free slots'
+    ranks)."""
+    frames = sum(f for _, f, _, _ in rec.steps)
+    cached = sum(f for c, f, _, _ in rec.steps if c)
+    renders = (rec.probe_frames * probe_chunks
+               + rec.eval_frames * eval_chunks)
+    want = dict.fromkeys(launches, 0)
+    want.update(
+        k_smallest=frames + renders, shading_chain_fwd=frames + renders,
+        shading_chain_bwd=frames, shading_chain_dw=frames,
+        segment_sum=2 * frames - cached, adam_table=len(rec.steps),
+        cumsum_rows=2 * rec.grids + cached + 2 * rec.grows)
+    return want
+
+
+def _log_events(path):
+    """The event lines of a run's log.txt (all but the loss lines)."""
+    with open(path) as f:
+        lines = [line.split("] ", 1)[1].rstrip("\n") for line in f]
+    return [x for x in lines if not x.startswith("step ")]
+
+
+def phase_train_cli():
+    """The training CLI on the card at train_config() with prob_thresh
+    TRAIN_CLI_PROB_THRESH (module constants TRAIN_CLI_*): a ScanNet-layout
+    scene of EVAL_FRAMES frames (4 train), bootstrapped from its sensor
+    depth, then TRAIN_CLI_STEPS steps crossing burst -> cached -> burst,
+    with a probe-and-grow, a prune, an eval, a save on the better PSNR and
+    the final save; then a second call
+    resumes from that checkpoint and takes TRAIN_CLI_RESUME_STEPS steps of
+    TRAIN_CLI_FRAMES frames (train_step_multi).  Each call's launches must
+    equal the schedule's (_predicted_launches); growth must add and the
+    prune remove points; the final checkpoint loads at the last step."""
+    import dataclasses
+    import tempfile
+    import torch
+    from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.cli import train as cli_train
+    from hybridneuralrendering_tpu_torch.data import sampling, synthetic
+    from hybridneuralrendering_tpu_torch.train import checkpoint as ckpt
+    from hybridneuralrendering_tpu_torch.train import pyramid_cache
+
+    def lifecycle_config():
+        cfg = config.train_config()
+        return cfg.replace(probe=dataclasses.replace(
+            cfg.probe, prob_thresh=TRAIN_CLI_PROB_THRESH))
+    config.PRESETS[TRAIN_CLI_PRESET] = lifecycle_config
+    cfg = config.PRESETS[TRAIN_CLI_PRESET]()
+    H, W = cfg.image_hw
+    ef = cfg.sampling.edge_filter
+    probe_chunks = -(-sampling.full_image_grid(H, W, ef).reshape(-1, 2)
+                     .shape[0] // cfg.sampling.eval_rays)
+    eval_chunks = -(-H * W // cfg.sampling.eval_rays)
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as root:
+        synthetic.write_scannet_scene(root, cfg, "synth", EVAL_FRAMES)
+        ck_root = os.path.join(root, "ckpts")
+        base = ["--preset", TRAIN_CLI_PRESET, "--data-root", root, "--scan",
+                "synth", "--checkpoints-dir", ck_root, "--name",
+                "synth_train", "--load-points", "2",
+                "--device", DEVICE] + TRAIN_CLI_FLAGS
+        held = torch.cuda.memory_allocated()
+
+        def once(argv, frames):
+            st, rec, launches, seconds, peak = _cli_call(cli_train, argv,
+                                                         frames)
+            rec.eval_frames = len(rec.of("eval_frame"))
+            want = _predicted_launches(cfg, rec, launches, probe_chunks,
+                                       eval_chunks)
+            if launches != want:
+                raise AssertionError(f"cli.train launched {launches}, the "
+                                     f"schedule gives {want}")
+            return st, rec, launches, seconds, peak
+
+        st1, rec1, l1, s1, peak1 = once(
+            base + ["--max-steps", str(TRAIN_CLI_STEPS)], 1)
+        run_dir = os.path.join(ck_root, "synth_train")
+        events1 = _log_events(os.path.join(run_dir, "log.txt"))
+        st2, rec2, l2, s2, peak2 = once(
+            base + ["--max-steps", str(TRAIN_CLI_STEPS
+                                       + TRAIN_CLI_RESUME_STEPS),
+                    "--resume", "--frames-per-step", str(TRAIN_CLI_FRAMES)],
+            TRAIN_CLI_FRAMES)
+        events2 = _log_events(os.path.join(run_dir, "log.txt"))[
+            len(events1):]
+        final = ckpt.latest_checkpoint(os.path.join(run_dir, "ckpt"))
+        back, best = ckpt.load_checkpoint(final, cfg, device=DEVICE)
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+
+    def steps_of(rec, cached):
+        """The steps' own times, and the loop's wall a step: from one
+        step's start to the next's, where no probe, prune or eval ran
+        between them (a print's loss read stays in)."""
+        ms = [x[3] for x in rec.steps if x[0] == cached]
+        loop = [(b[2] - a[2]) * 1e3 for i, (a, b) in enumerate(
+            zip(rec.steps, rec.steps[1:])) if a[0] == cached and all(
+            (i + 1) % k for k in (TRAIN_CLI_PROBE, TRAIN_CLI_PRUNE,
+                                  TRAIN_CLI_TEST))]
+        return dict(step_ms=_stats(ms), loop_ms=_stats(loop))
+
+    grows = [e[2] for e in rec1.of("probe_and_grow")]
+    prunes = [e[2] for e in rec1.of("prune_and_rebuild")]
+    total = TRAIN_CLI_STEPS + TRAIN_CLI_RESUME_STEPS
+    log("train_cli", preset=TRAIN_CLI_PRESET, steps=TRAIN_CLI_STEPS,
+        bootstrap=[dict(seconds=e[1], **e[2]) for e in
+                   rec1.of("bootstrap") + rec2.of("bootstrap")],
+        uncached=steps_of(rec1, False), cached=steps_of(rec1, True),
+        multi_frame_step_ms=_stats([x[3] for x in rec2.steps]),
+        probe_and_grow=[dict(seconds=e[1], **e[2]) for e in
+                        rec1.of("probe_and_grow")],
+        probe_frames=rec1.probe_frames, probe_chunks=probe_chunks,
+        probe_holes=[e[2] for e in rec1.of("holes")],
+        prune_and_rebuild=[dict(seconds=e[1], **e[2]) for e in
+                           rec1.of("prune_and_rebuild")],
+        eval_frame_ms=[e[1] * 1e3 for e in rec1.of("eval_frame")],
+        evaluate=[dict(seconds=e[1], **e[2]) for e in rec1.of("evaluate")],
+        saves=[dict(seconds=e[1], **e[2]) for e in
+               rec1.of("save") + rec2.of("save")],
+        resume_load_seconds=[e[1] for e in rec2.of("load")],
+        grid_builds=[rec1.grids, rec2.grids], grows=rec1.grows,
+        cache_invalidations=[rec1.invalidations, rec2.invalidations],
+        main_seconds=[s1, s2], max_memory_allocated=[peak1, peak2],
+        memory_allocated_before=held, launches=[l1, l2],
+        checkpoints=ckpts, final_step=back.step, final_live=
+        back.points.num_live, best_psnr=best, log_events=events1 + events2)
+    added = sum(g["added"] for g in grows)
+    removed = sum(p["removed"] for p in prunes)
+    if not grows or added <= 0 or not prunes or removed <= 0:
+        raise AssertionError(f"the lifecycle grew {added} points in "
+                             f"{len(grows)} probes and pruned {removed} in "
+                             f"{len(prunes)}")
+    # the burst schedule: uncached in each cycle's first steps, cached
+    # after them, the cache emptied where a burst follows a cached step
+    kinds = [[x[0] for x in rec.steps] for rec in (rec1, rec2)]
+    want = [[not pyramid_cache.in_burst(s, cfg.optim) for s in steps]
+            for steps in (range(TRAIN_CLI_STEPS), range(TRAIN_CLI_STEPS,
+                                                        total))]
+    flips = sum(pyramid_cache.burst_begins(s, cfg.optim)
+                for s in range(TRAIN_CLI_STEPS))
+    if (kinds != want or rec1.invalidations != flips
+            or rec2.invalidations != 0 or not any(kinds[0])
+            or not rec1.of("evaluate")
+            or not all(math.isfinite(e[2]["psnr"])
+                       for e in rec1.of("evaluate"))):
+        raise AssertionError(f"the run took other steps than its schedule "
+                             f"(cache emptied {rec1.invalidations} times, "
+                             f"the schedule {flips}), or its eval is "
+                             f"missing or not finite")
+    if (back.step != total or st2.step != total
+            or back.points.num_live != st2.points.num_live
+            or f"{total}_state.npz" not in ckpts
+            or {back.points.table.device.type, st2.points.table.device.type}
+            != {torch.device(DEVICE).type}
+            or not any(x.startswith("resumed from ") for x in events2)):
+        raise AssertionError(f"the final checkpoint {ckpts} (step "
+                             f"{back.step}) is not the resumed run's")
+    if not torch.equal(back.points.table, st2.points.table):
+        raise AssertionError("the final checkpoint's table differs from "
+                             "the trainer's")
+    return {k: l1[k] + l2[k] for k in l1}
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged):
     """One more training step and one more cached step under
     torch.profiler."""
@@ -1794,6 +2135,7 @@ def main(argv=None) -> int:
                                                      train_ms)
     phase_train_check(tcfg, points, grid, grid_c, params)
     eval_launches = phase_eval_cli(cfg, st, grid)
+    train_cli_launches = phase_train_cli()
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank, staged)
     signal.alarm(0)
@@ -1801,7 +2143,7 @@ def main(argv=None) -> int:
 
     launches = {k: serve_launches[k] + train_launches[k]
                 + cached_launches[k] + eval_launches[k]
-                for k in serve_launches}
+                + train_cli_launches[k] for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 
     def row(name, replaces, m):

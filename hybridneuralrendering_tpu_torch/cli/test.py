@@ -126,10 +126,7 @@ def main(argv=None) -> Dict[str, float]:
     vis.log(f"loaded {latest} (step {int(ts.step)}, best PSNR {best:.2f})")
 
     pts = ts.points
-    geom = VG.compute_grid_geometry(pts.xyz.cpu().numpy(),
-                                    pts.mask.cpu().numpy(), cfg.querier,
-                                    device=dev)
-    grid = VG.build_grid(pts.xyz, pts.mask, geom, cfg.querier)
+    grid = VG.grid_of(pts.xyz, pts.mask, cfg.querier)
 
     n = args.num_frames or len(test_ds)
     preds, gts = [], []

@@ -2,11 +2,11 @@
 read.
 
 A copy of the dataclasses of `hybridneuralrendering_tpu/config.py` that the
-render and training paths need (querier, points, aggregator, render, blur,
-sampling, loss, optim), with the same fields and defaults, so that a preset
-here equals the JAX preset of the same name field by field
-(tests/test_torch_port_config.py checks it).  The probe (grow/prune) and
-parallel sub-configs come with the slices that use them.  PRESETS carries
+render, training and lifecycle paths need (querier, points, aggregator,
+render, blur, sampling, loss, optim, probe), with the same fields and
+defaults, so that a preset here equals the JAX preset of the same name field
+by field (tests/test_torch_port_config.py checks it).  The parallel
+sub-config comes with the slice that uses it.  PRESETS carries
 the JAX package's names; the presets whose knobs the port does not run yet
 (the learnable blur kernel, the NeRF-synthetic workloads) raise
 NotImplementedError naming the ROADMAP item that ports them.
@@ -267,6 +267,25 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class ProbeConfig:
+    """Point growing / pruning ("probe holes", reference
+    run/train_ft.py:450-569): train/lifecycle.py and the trainer's
+    schedule (cli/train.py)."""
+
+    prob_freq: int = 10_000
+    prob_num_step: int = 100
+    prob_thresh: float = 0.7
+    prob_mul: float = 0.4
+    prob_kernel_size: Tuple[int, ...] = (3, 3, 3, 1, 1, 1)
+    prob_tiers: Tuple[int, ...] = (40_000, 120_000)
+    prob_top: int = 1
+    prune_thresh: float = -1.0
+    prune_iter: int = -1
+    prune_max_iter: int = 150_000
+    far_thresh: float = -1.0
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "default"
     querier: QuerierConfig = field(default_factory=QuerierConfig)
@@ -277,6 +296,7 @@ class Config:
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    probe: ProbeConfig = field(default_factory=ProbeConfig)
     image_hw: Tuple[int, int] = (480, 640)
     seed: int = 0
 

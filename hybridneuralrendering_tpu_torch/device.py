@@ -24,9 +24,12 @@ def resolve(device="cuda") -> torch.device:
 
 def device_batch(batch: Dict, device="cuda") -> Dict:
     """A host batch (numpy arrays, as data/scannet.ScannetScene.get_batch
-    gives) as tensors on `device`, without HOST_KEYS."""
+    gives; a leaf already a tensor, such as the trainer's view-bank stack,
+    is moved only if it lies elsewhere) as tensors on `device`, without
+    HOST_KEYS."""
     dev = resolve(device)
-    return {k: torch.as_tensor(np.asarray(v), device=dev)
+    return {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
+                               device=dev)
             for k, v in batch.items() if k not in HOST_KEYS}
 
 

@@ -256,3 +256,54 @@ def gather(points: NeuralPoints, sample_pidx: torch.Tensor,
         for p, trainable in zip(parts, points.trainable)]
     return SampledPoints(xyz=xyz, embedding=emb, conf=conf[..., 0],
                          color=color, dirs=dirs)
+
+
+def prune(points: NeuralPoints, thresh: float) -> NeuralPoints:
+    """Drop the live points whose conf is not above `thresh` (JAX:
+    neural_points.prune; reference prune, neural_points.py:350-373).  Pure
+    masking: capacity and table unchanged, `num_live` recounted.  Returns a
+    new NeuralPoints sharing the input's table."""
+    keep = points.mask & (points.conf[:, 0] > thresh)
+    return dataclasses.replace(points, mask=keep,
+                               num_live=int(keep.sum()))
+
+
+def grow(points: NeuralPoints, new_xyz: torch.Tensor,
+         new_embedding: torch.Tensor, new_conf: torch.Tensor,
+         new_color: torch.Tensor, new_dirs: torch.Tensor,
+         new_mask: torch.Tensor) -> NeuralPoints:
+    """Write the new points of `new_mask` [M] into free capacity slots
+    (JAX: neural_points.grow; reference grow_points, neural_points.py:
+    376-402): the r-th masked new point goes to the r-th free slot in index
+    order, and what does not fit is dropped (JAX's mode="drop").  The new
+    points' ranks and the free slots' ranks are int32 row scans
+    (cumsum_rows: the kernel on the card).  Returns a new NeuralPoints on
+    the points' device; the input is left untouched."""
+    cap = points.capacity
+    dev = points.table.device
+    new_mask = new_mask.to(device=dev, dtype=torch.bool)
+    M = new_mask.shape[0]
+    if M == 0:
+        return dataclasses.replace(points, table=points.table.clone(),
+                                   mask=points.mask.clone())
+    free = ~points.mask
+    order = cumsum_rows(new_mask.to(torch.int32)).long() - 1      # [M]
+    free_rank = cumsum_rows(free.to(torch.int32)).long() - 1      # [N]
+    # slot_of_rank[r] = index of the r-th free slot, cap past the last
+    slot_of_rank = torch.full((cap,), cap, dtype=torch.long, device=dev)
+    slot_of_rank[free_rank[free]] = torch.nonzero(free).reshape(-1)
+    dest = slot_of_rank[torch.clamp(order, 0, cap - 1)]
+    dest = torch.where(new_mask, dest, cap)
+    keep = dest < cap
+    parts = [torch.as_tensor(p, dtype=torch.float32, device=dev).reshape(M, -1)
+             for p in (new_xyz, new_embedding, new_conf, new_color, new_dirs)]
+    width = points.table.shape[1]
+    used = sum(p.shape[1] for p in parts)
+    new_table = torch.cat(parts + [parts[0].new_zeros(M, width - used)],
+                          dim=1)
+    table = points.table.clone()
+    mask = points.mask.clone()
+    table[dest[keep]] = new_table[keep]
+    mask[dest[keep]] = True
+    return dataclasses.replace(points, table=table, mask=mask,
+                               num_live=int(mask.sum()))

@@ -62,7 +62,7 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
            batch: Dict, cfg: Config,
            img_feat_n: Optional[torch.Tensor] = None, train: bool = False,
            noise: Optional[torch.Tensor] = None,
-           img_feat_staged=None) -> Dict:
+           img_feat_staged=None, prob: bool = False) -> Dict:
     """Render one batch of rays.  Deterministic unless `train`: then
     `noise` [R, z_depth_dim] in [0, 1) jitters the candidate samples and
     the rays of aggregator.drop_ray_mask lose their image features.
@@ -76,7 +76,8 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     (train/pyramid_cache.py); with either the pyramid CNN does not run.
     The point gather goes through its unique rows (cfg.agg.dedup_gather)
     when stage maps are given or cfg.agg.dedup_uncached is set, as in
-    JAX renderer.py:87-93."""
+    JAX renderer.py:87-93.  `prob` adds the point-growing outputs
+    (prob_outputs)."""
     if "bg_ray" in batch:
         raise NotImplementedError("plane backgrounds (bg_ray) are not "
                                   "ported yet")
@@ -147,7 +148,7 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             march.RENDER_FUNCS[rcfg.which_render_func],
             march.BLEND_FUNCS[rcfg.which_blend_func], bg_color)
         ray_color = march.TONEMAP_FUNCS[rcfg.which_tonemap_func](ray_color)
-    return {
+    output = {
         "coarse_raycolor": ray_color,              # [R, 3]
         "coarse_point_opacity": opacity,           # [R, SR]
         "coarse_is_background": bg_trans,          # [R, 1]
@@ -159,3 +160,42 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         "conf_coefficient": out.conf_coefficient,
         "queried_shading": ~out.ray_valid.any(dim=-1, keepdim=True),
     }
+    if prob:
+        output.update(prob_outputs(opacity, qres.sample_loc_w, sampled,
+                                   out.weight * out.conf_coefficient))
+    return output
+
+
+def prob_outputs(opacity: torch.Tensor, sample_loc_w: torch.Tensor,
+                 sampled: npts.SampledPoints,
+                 wconf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The point-growing outputs at each ray's max-opacity sample (JAX
+    renderer.py:178-194; reference :394-425): that sample's opacity
+    [R, 1] and world location [R, 3], its distance to the nearest of its K
+    neighbours [R, 1], and the neighbours' colour, direction, conf and
+    embedding summed with the weights `wconf` = weight * conf_coefficient
+    [R, SR, K].  The argmax takes the first maximum, as jnp.argmax does."""
+    R = opacity.shape[0]
+    # the first index of the row maximum (torch.argmax does not promise
+    # which of tied maxima it returns)
+    SR = opacity.shape[1]
+    idx = torch.arange(SR, device=opacity.device)
+    is_max = opacity == opacity.max(dim=-1, keepdim=True).values
+    op_ind = torch.where(is_max, idx, SR).min(dim=-1).values
+    r_ix = torch.arange(R, device=opacity.device)
+    max_loc = sample_loc_w[r_ix, op_ind]                       # [R, 3]
+    wsel = wconf[r_ix, op_ind][..., None]                      # [R, K, 1]
+    xyz_sel = sampled.xyz[r_ix, op_ind]                        # [R, K, 3]
+    out = {
+        "ray_max_shading_opacity": opacity[r_ix, op_ind][:, None],
+        "ray_max_sample_loc_w": max_loc,
+        "ray_max_far_dist": torch.linalg.vector_norm(
+            xyz_sel - max_loc[:, None, :], dim=-1).min(
+            dim=-1, keepdim=True).values,
+    }
+    for nm, arr in (("color", sampled.color), ("dir", sampled.dirs),
+                    ("conf", sampled.conf[..., None]),
+                    ("embedding", sampled.embedding)):
+        out[f"shading_avg_{nm}"] = torch.sum(arr[r_ix, op_ind] * wsel,
+                                             dim=-2)
+    return out

@@ -256,3 +256,12 @@ def build_grid(xyz: torch.Tensor, point_mask: torch.Tensor,
         occ_numpnts=occ_numpnts, num_occ=torch.clamp(num_occ, max=max_o),
         coor2node=coor2node, node_bucket=node_bucket, num_nodes=num_nodes,
         occ_bits=occ_bits)
+
+
+def grid_of(xyz: torch.Tensor, point_mask: torch.Tensor,
+            cfg: QuerierConfig) -> PointGrid:
+    """The query grid of the live points: the geometry from host copies of
+    xyz [N, 3] and point_mask [N], the tables built on xyz's device."""
+    geom = compute_grid_geometry(xyz.cpu().numpy(), point_mask.cpu().numpy(),
+                                 cfg, device=xyz.device)
+    return build_grid(xyz, point_mask, geom, cfg)

@@ -29,24 +29,31 @@ from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
 # per-ray outputs of renderer.render that a request returns
 RAY_OUTPUTS = ("coarse_raycolor", "coarse_is_background", "ray_mask",
                "coarse_point_opacity")
+# and, with prob=True, the point-growing outputs (renderer.prob_outputs)
+PROB_OUTPUTS = ("ray_max_shading_opacity", "ray_max_sample_loc_w",
+                "ray_max_far_dist", "shading_avg_color", "shading_avg_dir",
+                "shading_avg_conf", "shading_avg_embedding")
 
 
 @torch.inference_mode()
 def eval_step(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
-              batch: Dict, cfg: Config) -> Dict:
-    """Deterministic render of one chunk (no jitter, no drop, no blur)."""
+              batch: Dict, cfg: Config, prob: bool = False) -> Dict:
+    """Deterministic render of one chunk (no jitter, no drop, no blur);
+    `prob` adds the point-growing outputs."""
     with no_tf32():
-        return renderer.render(params, points, grid, batch, cfg)
+        return renderer.render(params, points, grid, batch, cfg, prob=prob)
 
 
 @torch.inference_mode()
 def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
-                request: Dict, cfg: Config) -> Dict:
+                request: Dict, cfg: Config, prob: bool = False) -> Dict:
     """Render every ray of `request` in chunks of cfg.sampling.eval_rays.
-    Returns RAY_OUTPUTS concatenated over the request's rays."""
+    Returns RAY_OUTPUTS (and PROB_OUTPUTS with `prob`) concatenated over
+    the request's rays."""
     raydir = request["raydir"]
     chunk = cfg.sampling.eval_rays
-    outs = {k: [] for k in RAY_OUTPUTS}
+    keys = RAY_OUTPUTS + (PROB_OUTPUTS if prob else ())
+    outs = {k: [] for k in keys}
     with no_tf32():
         img_feat_n = None
         if cfg.agg.use_nearest > 0 and "images_nearest" in request:
@@ -55,8 +62,8 @@ def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         for start in range(0, raydir.shape[0], chunk):
             batch = dict(request, raydir=raydir[start:start + chunk])
             out = renderer.render(params, points, grid, batch, cfg,
-                                  img_feat_n=img_feat_n)
-            for k in RAY_OUTPUTS:
+                                  img_feat_n=img_feat_n, prob=prob)
+            for k in keys:
                 outs[k].append(out[k])
     return {k: torch.cat(v) for k, v in outs.items()}
 

@@ -12,15 +12,20 @@ CNN-burst step); with it the step reads cached stage maps
 run over every leaf, as optax does: after an uncached step the CNN moves
 on a cached step by its first moment alone.
 
-The step updates the state's tensors in place and returns the state.
-Float32 convolutions run without TF32 (device.no_tf32), as in serving.
+`train_step_multi` takes F frames' batches in one optimizer step: the
+loss is the mean of the frames' totals, and the frames run one after
+another, each backward adding the gradient of its total / F, so one frame's
+graph is alive at a time.  The step updates the state's tensors in place
+and returns the state.  Float32 convolutions run without TF32
+(device.no_tf32), as in serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -35,9 +40,26 @@ from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
 from hybridneuralrendering_tpu_torch.train.state import (
     TrainState, lr_schedule, tree_leaves, tree_map)
 
+# the ROADMAP item that ports plane backgrounds
+PLANE_ITEM = "ROADMAP Queue 1 item 10"
+
+
 def device_batch(batch: Dict) -> Dict:
     """The batch without its host-only keys (frame and view ids)."""
     return {k: v for k, v in batch.items() if k not in HOST_KEYS}
+
+
+def maybe_add_bg_ray(batch: Dict, points: npts.NeuralPoints,
+                     cfg: Config) -> Dict:
+    """The plane-background preprocessing of JAX step.maybe_add_bg_ray:
+    the batch unchanged unless render.bgmodel ends with 'plane' and the
+    batch carries the plane keys and the nearest views; that case is not
+    ported and raises NotImplementedError."""
+    if (not cfg.render.bgmodel.endswith("plane")
+            or "plane_pnt" not in batch or "images_nearest" not in batch):
+        return batch
+    raise NotImplementedError(f"plane backgrounds (bg_ray) are not ported "
+                              f"yet ({PLANE_ITEM})")
 
 
 def forward_with_blur(params: Dict, points: npts.NeuralPoints,
@@ -84,6 +106,28 @@ def _noise(batch: Dict, cfg: Config, generator, noise):
                       generator=generator, device=raydir.device)
 
 
+def _grad_leaves(state: TrainState):
+    """Leaf copies of the network parameters and (when an attribute
+    trains) the point table that collect the gradients of backward."""
+    params = tree_map(lambda t: t.detach().requires_grad_(True),
+                      state.params)
+    points = state.points
+    if state.opt_pts is not None:
+        points = dataclasses.replace(
+            points, table=points.table.detach().requires_grad_(True))
+    return params, points
+
+
+def _grads(state: TrainState, params: Dict, points: npts.NeuralPoints):
+    g_net = tree_map(lambda t: t.grad if t.grad is not None
+                     else torch.zeros_like(t), params)
+    g_table = None
+    if state.opt_pts is not None:
+        g_table = points.table.grad if points.table.grad is not None \
+            else torch.zeros_like(points.table)
+    return g_net, g_table
+
+
 def loss_and_grads(state: TrainState, grid: PointGrid, batch: Dict,
                    blur_kernels: Optional[torch.Tensor], cfg: Config,
                    generator: Optional[torch.Generator] = None,
@@ -98,25 +142,54 @@ def loss_and_grads(state: TrainState, grid: PointGrid, batch: Dict,
     (s1, s2, s3)) makes it a cached step."""
     batch = device_batch(batch)
     noise = _noise(batch, cfg, generator, noise)
-    params = tree_map(lambda t: t.detach().requires_grad_(True),
-                      state.params)
-    points = state.points
-    if state.opt_pts is not None:
-        points = dataclasses.replace(
-            points, table=points.table.detach().requires_grad_(True))
+    params, points = _grad_leaves(state)
     with no_tf32():
         with record_function("train.forward"):
             total, items = loss_fn(params, points, grid, batch, cfg,
                                    blur_kernels, noise, img_feat_staged)
         with record_function("train.backward"):
             total.backward()
-    g_net = tree_map(lambda t: t.grad if t.grad is not None
-                     else torch.zeros_like(t), params)
-    g_table = None
-    if state.opt_pts is not None:
-        g_table = points.table.grad if points.table.grad is not None \
-            else torch.zeros_like(points.table)
-    return {k: v.detach() for k, v in items.items()}, g_net, g_table
+    return ({k: v.detach() for k, v in items.items()},) + _grads(
+        state, params, points)
+
+
+def multi_loss_and_grads(state: TrainState, grid: PointGrid, batches: Dict,
+                         blur_kernels: Optional[torch.Tensor], cfg: Config,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None,
+                         img_feat_staged=None):
+    """The loss of F frames (JAX step.multi_loss_fn) and its gradients.
+
+    `batches` holds every leaf with a leading frame axis F (stack_batches);
+    `noise` [F, R, z_depth_dim] gives each frame its candidate noise (drawn
+    per frame from `generator` when None); `img_feat_staged` = (images
+    [F, V, H, W, 3], (s1, s2, s3) each [F, V, ...]) makes it a cached
+    step.  The frames run one after another and each backward adds the
+    gradient of its total / F.  Returns (items: each loss item's mean over
+    the frames, the network gradients, the table gradient or None)."""
+    batches = device_batch(batches)
+    F = batches["raydir"].shape[0]
+    params, points = _grad_leaves(state)
+    per_frame: List[Dict[str, torch.Tensor]] = []
+    for f in range(F):
+        batch = {k: v[f] for k, v in batches.items()}
+        staged = None
+        if img_feat_staged is not None:
+            images, stages = img_feat_staged
+            staged = (images[f], tuple(s[f] for s in stages))
+        noise_f = _noise(batch, cfg, generator,
+                         None if noise is None else noise[f])
+        with no_tf32():
+            with record_function("train.forward"):
+                total, items = loss_fn(params, points, grid, batch, cfg,
+                                       blur_kernels, noise_f, staged)
+            with record_function("train.backward"):
+                (total / F).backward()
+        items.pop("ray_hit_frac")
+        per_frame.append({k: v.detach() for k, v in items.items()})
+    items = {k: torch.mean(torch.stack([it[k] for it in per_frame]))
+             for k in per_frame[0]}
+    return (items,) + _grads(state, params, points)
 
 
 @torch.no_grad()
@@ -182,3 +255,36 @@ def train_step(state: TrainState, grid: PointGrid, batch: Dict,
                                            cfg, generator, noise,
                                            img_feat_staged)
     return apply_updates(state, g_net, g_table, cfg), items
+
+
+def train_step_multi(state: TrainState, grid: PointGrid, batches: Dict,
+                     blur_kernels: Optional[torch.Tensor], cfg: Config,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None,
+                     img_feat_staged=None
+                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One optimizer step over F frames (JAX step.train_step_multi): the
+    frames' gradients of the mean total, then both Adams once.  Arguments
+    as multi_loss_and_grads; returns (state, the items' frame means)."""
+    items, g_net, g_table = multi_loss_and_grads(
+        state, grid, batches, blur_kernels, cfg, generator, noise,
+        img_feat_staged)
+    return apply_updates(state, g_net, g_table, cfg), items
+
+
+def stack_batches(batch_list: List[Dict]) -> Dict:
+    """Per-frame batch dicts -> one dict with a leading frame axis on every
+    leaf (JAX step.stack_batches): a key whose values include a tensor (the
+    trainer's view-bank image stacks) stacks as a tensor on that tensor's
+    device, any other as numpy."""
+    out = {}
+    for k in batch_list[0]:
+        vals = [b[k] for b in batch_list]
+        tensors = [v for v in vals if torch.is_tensor(v)]
+        if tensors:
+            dev = tensors[0].device
+            out[k] = torch.stack([torch.as_tensor(v, device=dev)
+                                  for v in vals])
+        else:
+            out[k] = np.stack([np.asarray(v) for v in vals])
+    return out

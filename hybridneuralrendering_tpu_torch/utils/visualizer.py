@@ -3,8 +3,8 @@
 An append-only log.txt, accumulated loss means with their PSNR, a
 `scalars.jsonl` stream and PNG dumps under `<out_dir>/<name>/images/`: the
 reference's layout.  PNGs go through io/png.py.  Videos (gen_video) and
-point dumps (save_neural_points) come with the render_vid and trainer
-slices.
+point dumps (save_neural_points, whose only JAX caller is cli/edit) come
+with the render_vid and edit slices.
 """
 
 from __future__ import annotations

@@ -68,7 +68,7 @@ def test_port_imports_no_jax():
     assert int(res.stdout.strip()) >= 20
 
 
-TRAIN_SUBCONFIGS = ("blur", "loss", "optim")
+TRAIN_SUBCONFIGS = ("blur", "loss", "optim", "probe")
 
 
 @pytest.mark.parametrize("preset", ["scannet_full", "tiny_test"])

@@ -813,3 +813,182 @@ def test_render_full_frame_equals_render_rays_on_card(cuda, tmp_path):
                             scannet.device_batch(ds.get_batch(0)), cfg)
     assert img.device.type == "cuda"
     assert torch.equal(img, ref["coarse_raycolor"].reshape(48, 64, 3))
+
+
+# ------------------------------------------------------ the trainer's parts
+
+def _holed_points(cfg, dev, n=1500, seed=0):
+    """tiny_test's synthetic cloud with scattered free slots: a conf
+    prune at 0.5 of conf uniform in [0, 1]."""
+    a = synthetic.scene_arrays(cfg, n, seed)
+    conf = torch.rand(len(a["xyz"]), 1,
+                      generator=torch.Generator().manual_seed(seed)).numpy()
+    pts = npts.init_from_arrays(a["xyz"], cfg.points,
+                                embedding=a["embedding"], conf=conf,
+                                color=a["color"], dirs=a["dirs"], device=dev)
+    return npts.prune(pts, 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,share", [(300, 0.5), (3000, 1.0)])
+def test_grow_and_prune_on_card_equal_cpu(cuda, M, share):
+    """prune and grow on the card equal the CPU's bit for bit; grow ranks
+    the new points and the free slots through the row-scan kernel (two
+    launches)."""
+    cfg = TC.tiny_test()
+    g = torch.Generator().manual_seed(M)
+    new = [torch.randn(M, w, generator=g) for w in (3, 8, 1, 3, 3)]
+    keep = torch.rand(M, generator=g) < share
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pts = _holed_points(cfg, dev)
+        before = TSCAN.cumsum_rows.launches
+        grown = npts.grow(pts, *(x.to(dev) for x in new), keep.to(dev))
+        assert TSCAN.cumsum_rows.launches - before == 2 * (dev.type == "cuda")
+        pruned = npts.prune(grown, 0.3)
+        out[dev.type] = (grown, pruned)
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert got.table.device.type == "cuda"
+        assert torch.equal(got.table.cpu(), ref.table)
+        assert torch.equal(got.mask.cpu(), ref.mask)
+        assert got.num_live == ref.num_live
+    assert out["cpu"][0].num_live > out["cpu"][1].num_live
+
+
+def _first_max(op):
+    """Index of each row's first maximum (jnp.argmax's rule)."""
+    idx = torch.arange(op.shape[-1])
+    is_max = op == op.max(dim=-1, keepdim=True).values
+    return torch.where(is_max, idx, op.shape[-1]).min(dim=-1).values
+
+
+@pytest.mark.gpu
+def test_prob_outputs_on_card_match_cpu(cuda):
+    """The point-growing outputs of a render on the card against the CPU's
+    within the smoke's 5e-3 on the rays where both devices pick the same
+    max-opacity sample; where they pick another, its opacity ties the
+    CPU's pick within 5e-3 (random weights leave many near-ties)."""
+    cfg = TC.tiny_test()
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        batch = synthetic.make_synthetic_batch(cfg, seed=5, num_rays=512,
+                                               device=dev)
+        outs[dev.type] = {k: v.cpu() for k, v in serve.render_rays(
+            params, points, grid, batch, cfg, prob=True).items()}
+    got, ref = outs["cuda"], outs["cpu"]
+    assert torch.equal(got["ray_mask"], ref["ray_mask"])
+    op = ref["coarse_point_opacity"]
+    ig, ir = _first_max(got["coarse_point_opacity"]), _first_max(op)
+    same = ig == ir
+    r = torch.arange(op.shape[0])
+    assert (op[r, ir] - op[r, ig]).abs().max() <= 5e-3
+    assert same.float().mean() > 0.9
+    for k in serve.PROB_OUTPUTS:
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=0,
+                                   atol=5e-3, msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cached", [False, True])
+def test_train_step_multi_on_card_equals_accumulated_frames(cuda, cached):
+    """train_step_multi at F = 2 on the card: its gradients are the mean of
+    the two frames' single-frame gradients, and it launches each frame's
+    kernels once per frame and the table Adam once."""
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                               use_frame_weight=True))
+    points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=cuda)
+    params = renderer.init_params(cfg, seed=0, device=cuda)
+    st = tstate.create_train_state(params, points, cfg, device=cuda)
+    frames = [synthetic.make_synthetic_batch(cfg, seed=s, device=cuda)
+              for s in (1, 2)]
+    batches = tstep.stack_batches(frames)
+    bank = torch.as_tensor(blur.generate_kernel_bank(cfg.blur), device=cuda)
+    noise = torch.rand((2, cfg.sampling.rays_per_batch,
+                        cfg.querier.z_depth_dim),
+                       generator=torch.Generator(device=cuda).manual_seed(4),
+                       device=cuda)
+    staged = None
+    if cached:
+        cache = TPC.PyramidCache(cfg, dtype=torch.float32)
+        maps = [cache.get_stack(st.params, f["images_nearest"],
+                                range(2 * i, 2 * i + 2))
+                for i, f in enumerate(frames)]
+        staged = (batches["images_nearest"],
+                  tuple(torch.stack([m[j] for m in maps]) for j in range(3)))
+    before = TS.k_smallest.launches, TSS.segment_sum.launches
+    items, g_net, g_table = tstep.multi_loss_and_grads(
+        st, grid, batches, bank, cfg, noise=noise, img_feat_staged=staged)
+    torch.cuda.synchronize()
+    assert TS.k_smallest.launches - before[0] == 2
+    assert TSS.segment_sum.launches - before[1] == (2 if cached else 4)
+    singles = [tstep.loss_and_grads(
+        st, grid, frames[f], bank, cfg, noise=noise[f],
+        img_feat_staged=None if staged is None else
+        (staged[0][f], tuple(s[f] for s in staged[1]))) for f in range(2)]
+    for k, v in items.items():
+        torch.testing.assert_close(v, (singles[0][0][k] + singles[1][0][k])
+                                   / 2, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(g_table, (singles[0][2] + singles[1][2]) / 2,
+                               rtol=1e-5, atol=1e-6 * float(
+                                   g_table.abs().max()))
+    for got, a, b in zip(tstate.tree_leaves(g_net),
+                         tstate.tree_leaves(singles[0][1]),
+                         tstate.tree_leaves(singles[1][1])):
+        torch.testing.assert_close(got, (a + b) / 2, rtol=1e-5,
+                                   atol=1e-6 * float(got.abs().max()) + 1e-12)
+    adam = TA.adam_table.launches
+    tstep.train_step_multi(st, grid, batches, bank, cfg, noise=noise,
+                           img_feat_staged=staged)
+    torch.cuda.synchronize()
+    assert TA.adam_table.launches - adam == 1 and st.step == 1
+
+
+@pytest.mark.gpu
+def test_probe_and_grow_and_prune_on_card(cuda, tmp_path):
+    """probe_and_grow and prune_and_rebuild on a small written scene on the
+    card: the frames rendered through the kernels, the points grown into
+    free slots (two row scans) and the grid rebuilt; the same counts and
+    masks as on the CPU, the grids equal bit for bit."""
+    import numpy as np
+    from hybridneuralrendering_tpu_torch.data import scannet
+    from hybridneuralrendering_tpu_torch.train import lifecycle
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(probe=dataclasses.replace(cfg.probe, prob_thresh=0.0,
+                                                prune_thresh=0.45))
+    synthetic.write_scannet_scene(str(tmp_path), cfg, "synth", n_frames=12)
+    ds = scannet.ScannetScene(str(tmp_path), "synth", cfg, "train")
+    rng = np.random.default_rng(0)
+    n = 1200
+    xyz = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.0, 1.0, n),
+                    rng.normal(0, 0.005, n)], -1).astype(np.float32)
+    xyz = xyz[~((np.abs(xyz[:, 0]) < 0.4) & (np.abs(xyz[:, 1]) < 0.3))]
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        pts = npts.init_from_arrays(xyz, cfg.points, device=dev)
+        grid = TVG.grid_of(pts.xyz, pts.mask, cfg.querier)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        k0, s0 = TS.k_smallest.launches, TSCAN.cumsum_rows.launches
+        grown, g1, added = lifecycle.probe_and_grow(
+            params, pts, grid, ds, cfg, max_frames=2,
+            rng=np.random.default_rng(1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            chunks = -(-cfg.image_hw[0] * cfg.image_hw[1]
+                       // cfg.sampling.eval_rays)
+            assert TS.k_smallest.launches - k0 == 2 * chunks
+            assert TSCAN.cumsum_rows.launches - s0 == 2 + 2
+        pruned, g2 = lifecycle.prune_and_rebuild(grown, cfg)
+        res[dev.type] = (added, grown, g1, pruned, g2)
+    (ka, kgr, kg1, kpr, kg2), (ca, cgr, cg1, cpr, cg2) = (res["cuda"],
+                                                          res["cpu"])
+    assert ka == ca > 0
+    assert kpr.num_live == cpr.num_live < kgr.num_live
+    for got, ref in ((kgr, cgr), (kpr, cpr)):
+        assert torch.equal(got.mask.cpu(), ref.mask)
+    for got, ref in ((kg2, cg2),):
+        for name in ("coor2occ", "occ_pnts", "occ_numpnts", "occ_bits"):
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(ref, name)), name

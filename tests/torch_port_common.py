@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hybridneuralrendering_tpu import config as JC
@@ -152,3 +153,16 @@ def write_fake_scannet(root, scan="scene_test", n_frames=12, hw=(48, 64),
                              f"{scan}_frame_weight_step5.npy"),
                 np.asarray(frame_weights))
     return str(root), scan
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module that imports this
+    fixture.  The suite runs in several worker processes on one CPU; with
+    torch's default of a thread per core each worker's many small ops wait
+    on the others' threads (a module of small renders ran 100x slower
+    that way than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -10,7 +10,9 @@ Phases, each printing one JSON progress line:
                  bound and the time of one PyTorch library call, and the
                  kernel's time over the library's and over the bound;
                  K-min also on the device alone and bit for bit on edge
-                 rows (all BIG, all +inf, few entries below BIG, k > C);
+                 rows (all BIG, all +inf, few entries below BIG, k > C),
+                 and at the per-voxel K-NN's width (C = 27 * P = 702) at a
+                 serving chunk's and a step's rows;
                  the shading chain's forward at a serving chunk's and a
                  training step's rows and its two backward kernels at a
                  step's, with a planted fault, a bitwise repeat and the old
@@ -27,6 +29,11 @@ Phases, each printing one JSON progress line:
                  K-min and one chain forward per request); then request 0
                  again for the census of the K-min's rows (the share with
                  fewer than K entries below BIG);
+     serve_pervoxel the same requests with supervoxel=False: the
+                 per-voxel K-NN, one K-min a request at C = 702; request
+                 0's masks and sorted neighbour ids equal to the supervoxel
+                 path's and colours within 1e-4, over the samples whose
+                 neighbourhood fills no voxel's P or node's Ps slots;
   6. check       the first rays of request 0 rendered again on the CPU
                  through the plain versions, compared with the card's result;
   7. train       train_config() on the same scene: 1 warm-up and 5 timed
@@ -51,6 +58,13 @@ Phases, each printing one JSON progress line:
                  each of six planted kernel faults must be rejected; then a
                  cached step the same way, where a rank scan made exclusive
                  (the dedup gather's ranks off by one) must be rejected;
+     train_learnable  the learnable blur kernel at full width (49 patches
+                 of 8x8 rays, a 9x9 kernel, mode 4): 1 + 5 uncached and
+                 1 + 5 cached steps with the bank's launches; then
+                 train_check_learnable, train_check's card-vs-CPU step with
+                 the blur MLP's gradient among the checked parts and three
+                 planted faults it must reject (the kernel flipped, the
+                 kernels laid out by .repeat, the identity mix dropped);
  10. eval_cli    the evaluation CLI: a ScanNet-layout scene of 20 frames
                  of the requests' camera written as PNGs, the trained state
                  saved with save_checkpoint (load back bit-equal), then
@@ -73,13 +87,23 @@ Phases, each printing one JSON progress line:
                  its schedule gives (_predicted_launches); it prints the
                  bootstrap, step (bare and loop wall), probe, prune,
                  rebuild, eval, save and resume times and the run's log
-                 events.
+                 events.  A third call trains a fresh run with
+                 --blur-mode learnable --native-prefetch 2 for 60 steps (40
+                 uncached, 20 cached, one save), held to its schedule, its
+                 checkpoint holding the blur MLP's leaves; each call prints
+                 the loop's host pieces (get_batch, device_batch, the native
+                 sampler's wait).  Then native_sampler (host): 50 batches at
+                 480x640 through numpy get_batch and through the native
+                 sampler, the native batch's checks, device_batch and the
+                 tracker's float().
 `--profile` adds a torch.profiler pass over one more request, one more
-training step and one more cached step and prints the kernels that took the
-most device time.
+training step and one more cached step, each with the blur bank and with
+the learnable kernel, and prints the kernels that took the most device
+time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
-the serve, train, train_cached, eval_cli and train_cli runs), the card as
+the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli
+and train_cli runs), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -106,6 +130,9 @@ CHECK_RAYS = 256
 # card against CPU renders: bf16 chains round at other points on the two
 # devices (one bf16 step near 1 is 2**-8); the masks must agree exactly
 CHECK_TOL = 5e-3
+# serve_pervoxel: the two K-NN paths keep the same neighbours and differ
+# only in their order, so the colours differ by the K-sum's float32 order
+PER_VOXEL_COLOUR_TOL = 1e-4
 # the eval_cli phase: a scene of 20 frames (4 train, 16 test), 4 of them
 # scored whole
 EVAL_FRAMES, EVAL_SCORED = 20, 4
@@ -125,6 +152,8 @@ CHECK_PATCHES, CHECK_PATCH_SIZE = 2, 8
 # the planted chain_dw fault drops the scratch's first rows: 64 of the
 # batch's 256 rays, SR * K rows each
 DW_FAULT_ROWS = 4_096
+# the per-voxel K-NN's candidates a sample: 27 voxels of P = 26 points
+PER_VOXEL_COLUMNS = 27 * 26
 # published H100 SXM peaks (dense): bytes/s of HBM3, float32 op/s outside
 # the tensor cores, bf16 op/s on them
 HBM_BYTES_PER_S = 3.35e12
@@ -338,8 +367,11 @@ def phase_kernels(cfg):
     K = cfg.querier.K
     main_shape = (RAYS_PER_REQUEST * cfg.querier.SR, cfg.querier.Ps, K)
     # serving; training (3,136 rays * SR); a wide row; per-voxel K-NN rows
+    # (C = 27 voxels * P points): a few, a serving chunk's, a step's
+    pv = PER_VOXEL_COLUMNS
     shapes = [main_shape, (75_264, cfg.querier.Ps, K), (75_264, 64, 8),
-              (4_096, 702, 8)]
+              (4_096, pv, 8), (RAYS_PER_REQUEST * cfg.querier.SR, pv, K),
+              (75_264, pv, K)]
     rows = {}
     for S, C, k in shapes:
         d, ids = _select_inputs(S, C, gen)
@@ -688,6 +720,111 @@ def phase_serve(cfg, points, grid, params):
         select_rows=_select_row_census(cfg, points, grid, params,
                                        requests[0]))
     return requests, outs, launches
+
+
+def _full_neighbourhoods(cfg, grid, loc):
+    """For shading points loc [S, 3]: whether a voxel of the kernel_size
+    neighbourhood holds P points or the supervoxel node holds Ps, the caps
+    past which the two K-NN paths may keep different points."""
+    import torch
+    from hybridneuralrendering_tpu_torch.ops import query
+    from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+    q = cfg.querier
+    cap = q.grid_capacity
+    svox = VG.voxel_coords(loc, grid.geom)
+    node = query._get_fill(grid.coor2node,
+                           VG.linearize(svox, grid.geom, cap), -1)
+    last_pid = grid.node_bucket[:, 4 * q.Ps - 1:4 * q.Ps].contiguous().view(
+        torch.int32)[:, 0]
+    full_node = (node >= 0) & (last_pid[node.clamp(min=0).long()] >= 0)
+    kx, ky, kz = q.kernel_size
+    offs = torch.as_tensor([[dx, dy, -(kz // 2)]
+                            for dx in range(-(kx // 2), (kx + 1) // 2)
+                            for dy in range(-(ky // 2), (ky + 1) // 2)],
+                           device=loc.device)
+    occ = query._window_gather_1d(grid.coor2occ, VG.linearize_padz(
+        svox[:, None] + offs, grid.geom, cap), kz, -1).reshape(len(loc), -1)
+    full_vox = ((occ >= 0) & (grid.occ_numpnts[occ.clamp(min=0).long()]
+                              == q.P)).any(dim=1)
+    return full_vox, full_node
+
+
+def phase_serve_pervoxel(cfg, points, grid, params, requests, sv_outs):
+    """The serving requests with supervoxel=False: the per-voxel K-NN, one
+    K-min a chunk over C = 27 * P candidates.  Then request 0's query and
+    render held to the supervoxel path's: masks equal, each sample's
+    sorted neighbour ids equal and colours within PER_VOXEL_COLOUR_TOL,
+    over the samples (and rays) whose neighbourhood fills neither a voxel's
+    P slots nor a node's Ps."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.ops import query
+    pcfg = cfg.replace(querier=dataclasses.replace(cfg.querier,
+                                                   supervoxel=False))
+    chunks = sum(-(-r["raydir"].shape[0] // cfg.sampling.eval_rays)
+                 for r in requests)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = [], []
+    reset_launches()
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(serve.render_rays(params, points, grid, req, pcfg))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want.update(k_smallest=chunks, shading_chain_fwd=chunks)
+    if launches != want:
+        raise AssertionError(f"per-voxel serving launched {launches} for "
+                             f"{chunks} chunks")
+    for i, out in enumerate(outs):
+        if not all(torch.isfinite(v).all() for v in out.values()
+                   if v.is_floating_point()):
+            raise AssertionError(f"per-voxel request {i} is not finite")
+
+    req = requests[0]
+    near, far = cfg.render.near_plane, cfg.render.far_plane
+    res = [query.query_points(grid, points.xyz, req["campos"],
+                              req["raydir"], c.querier, near, far)
+           for c in (cfg, pcfg)]
+    sv, pv = res
+    R, SR, K = sv.sample_pidx.shape
+    full_vox, full_node = _full_neighbourhoods(
+        cfg, grid, sv.sample_loc_w.reshape(-1, 3))
+    excluded = (sv.sample_mask.reshape(-1) & (full_vox | full_node))
+    keep = ~excluded.reshape(R, SR)
+    keep_ray = keep.all(dim=1)
+    census = dict(
+        voxels_holding_P=int((grid.occ_numpnts == cfg.querier.P).sum()),
+        nodes_holding_Ps=int((grid.node_bucket[:, 4 * cfg.querier.Ps - 1]
+                              .contiguous().view(torch.int32) >= 0).sum()),
+        samples=int(sv.sample_mask.sum()), excluded_samples=int(
+            excluded.sum()), excluded_rays=int((~keep_ray).sum()))
+    diffs = dict(
+        sample_mask=int((sv.sample_mask != pv.sample_mask).sum()),
+        pnt_mask=int((sv.pnt_mask != pv.pnt_mask)[keep].sum()),
+        ray_mask=int((sv.ray_mask != pv.ray_mask)[keep_ray].sum()),
+        neighbour_ids=int((torch.sort(sv.sample_pidx, dim=-1).values
+                           != torch.sort(pv.sample_pidx, dim=-1).values)
+                          .any(dim=-1)[keep].sum()))
+    colour = float((outs[0]["coarse_raycolor"] - sv_outs[0][
+        "coarse_raycolor"])[keep_ray].abs().max())
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    log("serve_pervoxel", request_ms=ms, chunks=chunks, launches=launches,
+        candidates_per_sample=PER_VOXEL_COLUMNS,
+        steady_rays_per_s=RAYS_PER_REQUEST / (steady / 1e3),
+        max_memory_allocated=peak, census=census,
+        against_supervoxel=dict(diffs, colour_max_abs_err=colour,
+                                colour_tolerance=PER_VOXEL_COLOUR_TOL,
+                                neighbours_found=int(sv.pnt_mask.sum())))
+    if any(diffs.values()) or colour > PER_VOXEL_COLOUR_TOL \
+            or not bool(sv.pnt_mask.any()):
+        raise AssertionError(f"per-voxel and supervoxel paths differ: "
+                             f"{diffs}, colour {colour}")
+    return launches
 
 
 def _select_row_census(cfg, points, grid, params, request):
@@ -1311,6 +1448,124 @@ def phase_train_cached(cfg, st, grid, bank, uncached_ms):
     return st, staged, launches
 
 
+def learnable_config(cfg):
+    """cfg with the learnable blur kernel (config.apply_blur_overrides'
+    'learnable'): its MLP reads patches of dilation_patch_size."""
+    import dataclasses
+    from hybridneuralrendering_tpu_torch import config
+    cfg = config.apply_blur_overrides(cfg, "learnable")
+    return cfg.replace(agg=dataclasses.replace(
+        cfg.agg, learnable_blur_patch_size=cfg.sampling.dilation_patch_size))
+
+
+def _timed_steps(st, grid, batches, cfg, gen, staged=None):
+    """One warm-up step on batches[0], then one timed step on each of the
+    rest; launches over exactly the timed steps."""
+    import torch
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    t0 = time.perf_counter()
+    st, _ = TT.train_step(st, grid, batches[0], None, cfg, generator=gen,
+                          img_feat_staged=staged)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ms, host_ms, items = [], [], []
+    reset_launches()
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        st, it = TT.train_step(st, grid, b, None, cfg, generator=gen,
+                               img_feat_staged=staged)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        items.append({k: float(v) for k, v in it.items()})
+    bad = [(i, k) for i, it in enumerate(items) for k, v in it.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"loss items not finite: {bad}")
+    return st, dict(warmup_ms=warmup_ms, step_ms=_stats(ms),
+                    host_return_ms=_stats(host_ms),
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    launches=read_launches(), loss_items_last=items[-1])
+
+
+def phase_train_learnable(cfg, points, grid):
+    """The training steps with the learnable blur kernel at full width
+    (cfg = learnable_config(train_config()): 49 patches of 8x8 rays, a 9x9
+    kernel, mode 4, boundary 0): 1 warm-up and TRAIN_STEPS uncached steps,
+    then the views' stage maps and 1 + TRAIN_STEPS cached steps; each
+    set's launches as the bank's steps (phases train, train_cached), and
+    the blur MLP must move."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.models import renderer
+    from hybridneuralrendering_tpu_torch.train import pyramid_cache as PC
+    from hybridneuralrendering_tpu_torch.train import state as TS
+    params = renderer.init_params(cfg, seed=1, device=DEVICE)
+    blur0 = [x.clone() for x in TS.tree_leaves(
+        params["aggregator"]["blur_kernel"])]
+    pts = dataclasses.replace(points, table=points.table.clone())
+    st = TS.create_train_state(params, pts, cfg, device=DEVICE)
+    batches = [synthetic.make_synthetic_batch(cfg, seed=50 + i,
+                                              device=DEVICE)
+               for i in range(TRAIN_STEPS + 1)]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    st, unc = _timed_steps(st, grid, batches, cfg, gen)
+    views = batches[0]["images_nearest"]
+    staged = (views, PC.PyramidCache(cfg).get_stack(st.params, views,
+                                                    range(len(views))))
+    st, cac = _timed_steps(st, grid, batches, cfg, gen, staged)
+    want_unc = dict.fromkeys(unc["launches"], TRAIN_STEPS)
+    want_unc.update(segment_sum=2 * TRAIN_STEPS, cumsum_rows=0)
+    want_cac = dict.fromkeys(cac["launches"], TRAIN_STEPS)
+    moved = [bool((a != b).any()) for a, b in zip(TS.tree_leaves(
+        st.params["aggregator"]["blur_kernel"]), blur0)]
+    K = cfg.agg.learnable_blur_kernel_size
+    log("train_learnable", rays_per_step=cfg.sampling.rays_per_batch,
+        patches=cfg.sampling.dilation_patch_num ** 2,
+        patch_size=cfg.sampling.dilation_patch_size, kernel=[K, K],
+        mode=cfg.agg.learnable_blur_kernel_mode,
+        boundary=cfg.agg.boundary_mode, uncached=unc, cached=cac,
+        blur_leaves_moved=moved)
+    if unc["launches"] != want_unc or cac["launches"] != want_cac \
+            or not all(moved):
+        raise AssertionError(f"learnable steps launched {unc['launches']} "
+                             f"and {cac['launches']}, want {want_unc} and "
+                             f"{want_cac}; blur leaves moved: {moved}")
+    return {k: unc["launches"][k] + cac["launches"][k]
+            for k in unc["launches"]}, (cfg, st, batches[-1], staged)
+
+
+def _learnable_faults():
+    """The learnable blur kernel's planted faults: (a) the kernel flipped,
+    a true convolution; (b) the grouped kernels laid out by .repeat, so
+    channel c of patch i takes the kernel of patch (3i + c) mod P; (c) the
+    identity mix dropped, mode 4 run as mode 0."""
+    import dataclasses
+    from hybridneuralrendering_tpu_torch.models import blur
+
+    def flipped(real):
+        return lambda x, k: real(x, k.flip(-1, -2))
+
+    def tiled(real):
+        return lambda x, k: real(x, k[::3].repeat(3, 1, 1))
+
+    def no_identity(real):
+        def learnable_blur_update(params, cfg, *a):
+            return real(params, dataclasses.replace(
+                cfg, learnable_blur_kernel_mode=0), *a)
+        return learnable_blur_update
+
+    return {"blur kernel flipped (a convolution)": (
+                _Planted(blur, "_conv_grouped", flipped), "net_grad_rel_l2"),
+            "blur kernels by .repeat": (
+                _Planted(blur, "_conv_grouped", tiled), "net_grad_rel_l2"),
+            "blur identity mix dropped": (
+                _Planted(blur, "learnable_blur_update", no_identity),
+                "item_rel_err")}
+
+
 def _adam_agreement(g_card, g_cpu, d_card, d_cpu, lr):
     """Adam's first step moves an element by about -lr * sign(g), so the
     update follows the gradient's sign.  Counts: elements whose gradient
@@ -1440,7 +1695,7 @@ def _cached_faults():
         _Planted(npts, "cumsum_rows", exclusive), "item_rel_err")}
 
 
-def phase_train_check(cfg, points, grid, grid_c, params):
+def phase_train_check(cfg, points, grid, grid_c, params, learnable=False):
     """One step of CHECK_PATCHES^2 patches of CHECK_PATCH_SIZE^2 rays from
     one state on the card and on the CPU (plain versions).  The bf16
     chains round at other points on the two devices.  The card's step must
@@ -1464,7 +1719,10 @@ def phase_train_check(cfg, points, grid, grid_c, params):
     the check must reject each of them.  Then the same for a cached step
     (stage maps through PyramidCache on each device, the dedup gather) with
     _cached_faults() planted.  Each control reports its margin, the reading
-    that rejects it over that reading's limit."""
+    that rejects it over that reading's limit.  With `learnable` (cfg and
+    params with the learnable blur kernel) it is one uncached step,
+    `train_check_learnable`, with _learnable_faults(): the blur MLP's
+    gradient is one of the network's checked parts."""
     import dataclasses
     import torch
     from hybridneuralrendering_tpu_torch.data import synthetic
@@ -1477,6 +1735,9 @@ def phase_train_check(cfg, points, grid, grid_c, params):
         cfg.sampling, random_sample_size=CHECK_PATCHES * CHECK_PATCH_SIZE,
         dilation_patch_num=CHECK_PATCHES,
         dilation_patch_size=CHECK_PATCH_SIZE))
+    if learnable:
+        small = small.replace(agg=dataclasses.replace(
+            small.agg, learnable_blur_patch_size=CHECK_PATCH_SIZE))
     R = small.sampling.rays_per_batch
     o = small.optim
     arrays = synthetic.batch_arrays(small, seed=99)
@@ -1605,6 +1866,9 @@ def phase_train_check(cfg, points, grid, grid_c, params):
         if missed:
             raise AssertionError(f"{label} passed planted faults: {missed}")
 
+    if learnable:
+        check("train_check_learnable", False, _learnable_faults())
+        return
     check("train_check", False, _faults(points.capacity))
     check("train_check_cached", True, _cached_faults())
 
@@ -1771,6 +2035,11 @@ def phase_eval_cli(cfg, st, grid):
 TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS, TRAIN_CLI_FRAMES = 420, 3, 2
 TRAIN_CLI_PROBE, TRAIN_CLI_PRUNE, TRAIN_CLI_TEST = 250, 300, 410
 TRAIN_CLI_CAP = 300_000
+# call 3, learnable blur and the native sampler: 40 uncached steps of the
+# burst, then 20 cached
+TRAIN_CLI_LEARNABLE_STEPS = 60
+# the native_sampler phase: batches timed each way
+NATIVE_BATCHES = 50
 TRAIN_CLI_DROP_BOX = (-0.4, -0.3, -0.05, 0.4, 0.3, 0.05)
 TRAIN_CLI_FLAGS = ["--prob-freq", str(TRAIN_CLI_PROBE), "--prob-frames",
                    "2", "--prune-iter", str(TRAIN_CLI_PRUNE),
@@ -1844,6 +2113,8 @@ class _Recorder:
     def planted(self):
         from hybridneuralrendering_tpu_torch import serve
         from hybridneuralrendering_tpu_torch.cli import train as cli_train
+        from hybridneuralrendering_tpu_torch.data import native_sampler
+        from hybridneuralrendering_tpu_torch.data.scannet import ScannetScene
         from hybridneuralrendering_tpu_torch.models import neural_points
         from hybridneuralrendering_tpu_torch.ops import voxel_grid
         from hybridneuralrendering_tpu_torch.train import checkpoint
@@ -1880,10 +2151,25 @@ class _Recorder:
                 "save", lambda a, kw, out: dict(file=os.path.basename(out),
                                                 bytes=os.path.getsize(out)))),
             _Planted(checkpoint, "load_checkpoint", self.timed("load")),
+            # the loop's host work: the training frames' batches, their
+            # copies to the card, the native sampler's wait
+            _Planted(ScannetScene, "get_batch", self.timed(
+                "get_batch", lambda a, kw, out: a[0].split)),
+            _Planted(cli_train, "device_batch", self.timed("device_batch")),
+            _Planted(native_sampler.PrefetchPipeline, "pop", self.timed(
+                "native_pop")),
         ]
 
     def of(self, name):
         return [e for e in self.events if e[0] == name]
+
+    def host_split(self):
+        """Median ms a step of the loop's host pieces: a training frame's
+        get_batch, its device_batch and the native sampler's pop."""
+        ms = {k: [e[1] * 1e3 for e in self.of(k)
+                  if k != "get_batch" or e[2] == "train"]
+              for k in ("get_batch", "device_batch", "native_pop")}
+        return {k: _stats(v) for k, v in ms.items() if v}
 
 
 def _hole_stats(maps, bg, out):
@@ -1969,6 +2255,7 @@ def phase_train_cli():
     from hybridneuralrendering_tpu_torch.data import sampling, synthetic
     from hybridneuralrendering_tpu_torch.train import checkpoint as ckpt
     from hybridneuralrendering_tpu_torch.train import pyramid_cache
+    from hybridneuralrendering_tpu_torch.train import state as TS
 
     def lifecycle_config():
         cfg = config.train_config()
@@ -2015,6 +2302,21 @@ def phase_train_cli():
         final = ckpt.latest_checkpoint(os.path.join(run_dir, "ckpt"))
         back, best = ckpt.load_checkpoint(final, cfg, device=DEVICE)
         ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        # call 3: a fresh run with the learnable blur kernel and the
+        # native batch sampler
+        base3 = [x if x != "synth_train" else "synth_learnable"
+                 for x in base]
+        st3, rec3, l3, s3, peak3 = once(
+            base3 + ["--max-steps", str(TRAIN_CLI_LEARNABLE_STEPS),
+                     "--blur-mode", "learnable", "--native-prefetch", "2"],
+            1)
+        run3 = os.path.join(ck_root, "synth_learnable")
+        events3 = _log_events(os.path.join(run3, "log.txt"))
+        ckpts3 = sorted(os.listdir(os.path.join(run3, "ckpt")))
+        back3, _ = ckpt.load_checkpoint(
+            ckpt.latest_checkpoint(os.path.join(run3, "ckpt")),
+            config.apply_blur_overrides(cfg, "learnable"), device=DEVICE)
+        phase_native_sampler(root, cfg)
 
     def steps_of(rec, cached):
         """The steps' own times, and the loop's wall a step: from one
@@ -2051,7 +2353,39 @@ def phase_train_cli():
         main_seconds=[s1, s2], max_memory_allocated=[peak1, peak2],
         memory_allocated_before=held, launches=[l1, l2],
         checkpoints=ckpts, final_step=back.step, final_live=
-        back.points.num_live, best_psnr=best, log_events=events1 + events2)
+        back.points.num_live, best_psnr=best, log_events=events1 + events2,
+        host_split=rec1.host_split())
+    blur_leaves = TS.tree_leaves(back3.params["aggregator"].get(
+        "blur_kernel", []))
+    log("train_cli_learnable", steps=TRAIN_CLI_LEARNABLE_STEPS,
+        flags=["--blur-mode", "learnable", "--native-prefetch", "2"],
+        uncached=steps_of(rec3, False), cached=steps_of(rec3, True),
+        call1_uncached=steps_of(rec1, False),
+        call1_cached=steps_of(rec1, True), host_split=rec3.host_split(),
+        call1_host_split=rec1.host_split(),
+        saves=[dict(seconds=e[1], **e[2]) for e in rec3.of("save")],
+        main_seconds=s3, max_memory_allocated=peak3, launches=l3,
+        checkpoints=ckpts3, blur_leaves=[list(x.shape) for x in
+                                         blur_leaves],
+        log_events=events3)
+    kinds3 = [x[0] for x in rec3.steps]
+    if (kinds3 != [not pyramid_cache.in_burst(s, cfg.optim)
+                   for s in range(TRAIN_CLI_LEARNABLE_STEPS)]
+            or not any(kinds3) or rec3.invalidations != 0
+            or ckpts3 != [f"{TRAIN_CLI_LEARNABLE_STEPS}_state.npz",
+                          "run_config.json"]
+            or "native prefetch on (2 workers)" not in events3
+            or len(rec3.of("native_pop")) != TRAIN_CLI_LEARNABLE_STEPS):
+        raise AssertionError(f"the learnable run took other steps than its "
+                             f"schedule, saved {ckpts3} or did not sample "
+                             f"natively")
+    want_blur = TS.tree_leaves(st3.params["aggregator"]["blur_kernel"])
+    if (len(blur_leaves) != 8 or any(
+            x.device.type != torch.device(DEVICE).type
+            or not torch.equal(x, w) for x, w in zip(blur_leaves,
+                                                     want_blur))):
+        raise AssertionError("the learnable run's checkpoint does not hold "
+                             "its blur MLP's leaves")
     added = sum(g["added"] for g in grows)
     removed = sum(p["removed"] for p in prunes)
     if not grows or added <= 0 or not prunes or removed <= 0:
@@ -2086,12 +2420,95 @@ def phase_train_cli():
     if not torch.equal(back.points.table, st2.points.table):
         raise AssertionError("the final checkpoint's table differs from "
                              "the trainer's")
-    return {k: l1[k] + l2[k] for k in l1}
+    return {k: l1[k] + l2[k] + l3[k] for k in l1}
 
 
-def phase_profile_train(cfg, st, grid, batch, bank, staged):
+def phase_native_sampler(root, cfg):
+    """Host batch assembly at cfg's image size and sampling, NATIVE_BATCHES
+    batches over the scene's training frames (decoded once before): numpy
+    get_batch against the native sampler's assemble_batch plus
+    get_batch(pixelcoords=...), and assemble_batch alone; the native batch
+    checked as JAX tests/test_data.py checks it; and the loop's other host
+    pieces: device_batch of one batch and the tracker's float() of a card
+    scalar on an idle queue."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch.data import native_sampler as NS
+    from hybridneuralrendering_tpu_torch.data.scannet import (ScannetScene,
+                                                              _np_raydir)
+    from hybridneuralrendering_tpu_torch.device import device_batch
+    from hybridneuralrendering_tpu_torch.ops import build
+    t0 = time.perf_counter()
+    NS.load()
+    load_s = time.perf_counter() - t0
+    ds = ScannetScene(root, "synth", cfg, "train")
+    s = cfg.sampling
+    n = len(ds)
+    for i in range(n):
+        ds.image(ds.id_list[i])
+    rng = np.random.default_rng(0)
+
+    def native(i, with_batch=True):
+        vid = ds.id_list[i % n]
+        xy, rgb, dirs = NS.assemble_batch(
+            ds.image(vid), s.edge_filter, s.dilation_patch_num,
+            s.dilation_patch_size, s.dilation_min, s.dilation_max,
+            ds.intrinsic, ds._pose(vid)[:3, :3], i)
+        if not with_batch:
+            return xy, rgb, dirs
+        b = ds.get_batch(i % n, rng, pixelcoords=xy)
+        b["raydir"], b["gt_image"] = dirs, rgb
+        return b
+
+    def per_batch_ms(fn):
+        t0 = time.perf_counter()
+        for i in range(NATIVE_BATCHES):
+            fn(i)
+        return (time.perf_counter() - t0) / NATIVE_BATCHES * 1e3
+
+    numpy_ms = per_batch_ms(lambda i: ds.get_batch(i % n, rng))
+    native_ms = per_batch_ms(native)
+    assemble_ms = per_batch_ms(lambda i: native(i, False))
+    b = native(0)
+    # the trainer's view bank has put the nearest views on the card
+    b["images_nearest"] = torch.as_tensor(b["images_nearest"], device=DEVICE)
+    dev_ms = per_batch_ms(lambda i: device_batch(b, DEVICE))
+    one = torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    float_us = per_batch_ms(lambda i: float(one[0])) * 1e3
+
+    H, W, m = ds.height, ds.width, s.edge_filter
+    xy, rgb, dirs = native(7, False)
+    flat = xy.reshape(-1, 2).astype(int)
+    img = ds.image(ds.id_list[7 % n])
+    again = native(7, False)
+    other = native(8, False)
+    checks = dict(
+        inside_margin=bool(xy[..., 0].min() >= m and xy[..., 0].max()
+                           < W - m and xy[..., 1].min() >= m
+                           and xy[..., 1].max() < H - m),
+        gt_exact=bool(np.array_equal(rgb, img[flat[:, 1], flat[:, 0]])),
+        raydir_close=bool(np.allclose(
+            dirs, _np_raydir(xy.reshape(-1, 2), ds.intrinsic,
+                             ds._pose(ds.id_list[7 % n])[:3, :3]),
+            rtol=1e-4, atol=1e-5)),
+        same_seed_equal=all(np.array_equal(a, c)
+                            for a, c in zip(again, (xy, rgb, dirs))),
+        other_seed_differs=not np.array_equal(other[0], xy))
+    log("native_sampler", image_hw=[H, W], rays=int(xy.size // 2),
+        batches=NATIVE_BATCHES, load_seconds=load_s,
+        build_seconds=build.BUILD_SECONDS.get("sampler"),
+        numpy_get_batch_ms=numpy_ms, native_get_batch_ms=native_ms,
+        assemble_batch_ms=assemble_ms, device_batch_ms=dev_ms,
+        tracker_float_us=float_us, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the native batch fails its checks: {checks}")
+
+
+def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
     """One more training step and one more cached step under
-    torch.profiler."""
+    torch.profiler, each with the blur bank and with the learnable kernel
+    (`learnable` = (its cfg, state, batch, staged maps))."""
     import torch
     from hybridneuralrendering_tpu_torch.train import step as TT
     gen = torch.Generator(device=DEVICE).manual_seed(7)
@@ -2099,6 +2516,12 @@ def phase_profile_train(cfg, st, grid, batch, bank, staged):
                                            generator=gen))
     profile("train_cached", lambda: TT.train_step(
         st, grid, batch, bank, cfg, generator=gen, img_feat_staged=staged))
+    lcfg, lst, lbatch, lstaged = learnable
+    profile("train_learnable", lambda: TT.train_step(
+        lst, grid, lbatch, None, lcfg, generator=gen))
+    profile("train_learnable_cached", lambda: TT.train_step(
+        lst, grid, lbatch, None, lcfg, generator=gen,
+        img_feat_staged=lstaged))
 
 
 def main(argv=None) -> int:
@@ -2115,6 +2538,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.models import renderer
     cfg = config.serve_config()
     smi = phase_device()
     phase_build()
@@ -2124,6 +2548,8 @@ def main(argv=None) -> int:
     scan = phase_kernels_scan()
     points, grid, params = phase_scene(cfg)
     requests, outs, serve_launches = phase_serve(cfg, points, grid, params)
+    pervoxel_launches = phase_serve_pervoxel(cfg, points, grid, params,
+                                             requests, outs)
     grid_c = cpu(grid)
     phase_check(cfg, points, grid, params, requests[0], outs[0], grid_c)
     if args.profile:
@@ -2134,15 +2560,21 @@ def main(argv=None) -> int:
     st, staged, cached_launches = phase_train_cached(tcfg, st, grid, bank,
                                                      train_ms)
     phase_train_check(tcfg, points, grid, grid_c, params)
+    lcfg = learnable_config(tcfg)
+    learnable_launches, learnable = phase_train_learnable(lcfg, points,
+                                                         grid)
+    phase_train_check(lcfg, points, grid, grid_c, renderer.init_params(
+        lcfg, seed=0, device=DEVICE), learnable=True)
     eval_launches = phase_eval_cli(cfg, st, grid)
     train_cli_launches = phase_train_cli()
     if args.profile:
-        phase_profile_train(tcfg, st, grid, batch, bank, staged)
+        phase_profile_train(tcfg, st, grid, batch, bank, staged, learnable)
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
-    launches = {k: serve_launches[k] + train_launches[k]
-                + cached_launches[k] + eval_launches[k]
+    launches = {k: serve_launches[k] + pervoxel_launches[k]
+                + train_launches[k] + cached_launches[k]
+                + learnable_launches[k] + eval_launches[k]
                 + train_cli_launches[k] for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 

@@ -49,8 +49,8 @@ def build_argparser():
                    help="override sampling.eval_chunk_rays (0 = preset)")
     p.add_argument("--blur-mode", default="preset",
                    choices=("preset", "off", "bank", "learnable"),
-                   help="must match the training run (learnable is not "
-                        "ported yet)")
+                   help="must match the training run (a learnable run's "
+                        "checkpoint holds the blur MLP's leaves)")
     p.add_argument("--pyramid-dtype", default=None,
                    choices=("float32", "bfloat16"),
                    help="override agg.pyramid_dtype (match the training run)")

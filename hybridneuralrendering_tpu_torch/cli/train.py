@@ -18,11 +18,18 @@ seeded by --seed, through `step_noise`; the initial parameters and point
 embeddings from CPU generators seeded by --seed (`init_params`,
 `init_embedding`).  The JAX CLI draws all three from jax.random keys.
 
+`--native-prefetch N` (N > 0, dilated sampling) assembles each step's
+pixels, ground truth and ray directions in the native sampler
+(data/native_sampler) on N worker threads, seeded by the step index, as
+the JAX CLI does: every frame of a multi-frame step gets the same pixels.
+Where the sampler cannot be built the CLI raises; the JAX CLI falls back
+to numpy sampling.  With another sampler the flag is ignored, as in JAX,
+and a log line says so.  `--blur-mode learnable` and `scannet_learnable`
+train the learnable blur kernel's MLP with the other parameters.
+
 Not ported yet, and refused with NotImplementedError before any work:
 --train-mode ff and --load-points 0 (MVS bootstrap, ROADMAP Queue 1 item
-14), --native-prefetch > 0 (the native batch sampler, item 5; the JAX CLI
-falls back to Python sampling without the library, the port does not),
---blur-mode learnable and scannet_learnable (item 8).
+14).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from hybridneuralrendering_tpu_torch import config as C
 from hybridneuralrendering_tpu_torch import serve
 from hybridneuralrendering_tpu_torch.cli.test import preset_config
+from hybridneuralrendering_tpu_torch.data import native_sampler
 from hybridneuralrendering_tpu_torch.data.point_init import (
     voxel_downsample_closest)
 from hybridneuralrendering_tpu_torch.data.scannet import ScannetScene
@@ -57,7 +65,6 @@ from hybridneuralrendering_tpu_torch.utils import metrics as M
 from hybridneuralrendering_tpu_torch.utils.visualizer import Visualizer
 
 MVS_ITEM = "ROADMAP Queue 1 item 14"
-NATIVE_SAMPLER_ITEM = "ROADMAP Queue 1 item 5"
 
 
 def build_argparser():
@@ -101,7 +108,7 @@ def build_argparser():
                    help="'ff' (feed-forward MVS training) is not ported")
     p.add_argument("--native-prefetch", type=int, default=0,
                    help="worker threads of the native batch sampler "
-                        "(not ported: only 0)")
+                        "(0 = numpy sampling; dilated sampling only)")
     p.add_argument("--frames-per-step", type=int, default=1,
                    help=">1 takes several frames' ray batches into one "
                         "optimizer step (larger effective batch)")
@@ -117,8 +124,7 @@ def build_argparser():
                         "(a hole for the probe-and-grow lifecycle)")
     p.add_argument("--blur-mode", default="preset",
                    choices=("preset", "off", "bank", "learnable"),
-                   help="override the preset's blur simulation (learnable "
-                        "is not ported)")
+                   help="override the preset's blur simulation")
     p.add_argument("--frame-weight", type=int, default=-1,
                    choices=(-1, 0, 1),
                    help="override quality-aware frame weights "
@@ -144,10 +150,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(f"--load-points {args.load_points} (MVS "
                                   f"bootstrap) is not ported yet "
                                   f"({MVS_ITEM})")
-    if args.native_prefetch > 0:
-        raise NotImplementedError(f"--native-prefetch (the native batch "
-                                  f"sampler) is not ported yet "
-                                  f"({NATIVE_SAMPLER_ITEM})")
 
 
 def configure(args) -> C.Config:
@@ -337,9 +339,27 @@ def main(argv=None) -> state_mod.TrainState:
         return (b["images_nearest"],
                 pyr_cache.get_stack(ts.params, b["images_nearest"], nvids))
 
-    def next_batch():
+    native_pipe = None
+
+    def next_batch(step_seed):
         fi = int(rng.integers(len(train_ds)))
-        return fi, train_ds.get_batch(fi, rng)
+        if native_pipe is None:
+            return fi, train_ds.get_batch(fi, rng)
+        # the native sampler draws the pixels, gathers the ground truth
+        # and makes the ray directions; get_batch adds the pose, the
+        # nearest views and the frame weight
+        vid = train_ds.id_list[fi]
+        s = cfg.sampling
+        native_pipe.submit(train_ds.image(vid), s.edge_filter,
+                           s.dilation_patch_num, s.dilation_patch_size,
+                           s.dilation_min, s.dilation_max,
+                           train_ds.intrinsic, train_ds._pose(vid)[:3, :3],
+                           step_seed)
+        _, xy, rgb, dirs = native_pipe.pop()
+        b = train_ds.get_batch(fi, rng, pixelcoords=xy.reshape(
+            s.random_sample_size, s.random_sample_size, 2))
+        b["raydir"], b["gt_image"] = dirs, rgb
+        return fi, b
 
     def log_box_live(s):
         """Live points inside the drop box after a lifecycle event."""
@@ -356,6 +376,15 @@ def main(argv=None) -> state_mod.TrainState:
     vis.log(f"training {name}: {max_steps} steps, "
             f"{cfg.sampling.rays_per_batch} rays/step, "
             f"{int(ts.points.num_live)} live points")
+    if args.native_prefetch > 0:
+        if cfg.sampling.random_sample == "dilated":
+            native_pipe = native_sampler.PrefetchPipeline(
+                args.native_prefetch)
+            vis.log(f"native prefetch on ({args.native_prefetch} workers)")
+        else:
+            vis.log(f"native prefetch off: the native sampler draws "
+                    f"dilated batches, the preset samples "
+                    f"'{cfg.sampling.random_sample}'")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     R, Z = cfg.sampling.rays_per_batch, cfg.querier.z_depth_dim
     F = args.frames_per_step
@@ -372,7 +401,7 @@ def main(argv=None) -> state_mod.TrainState:
         if F > 1:
             frames, staged_list = [], []
             for _ in range(F):
-                fi, b = next_batch()
+                fi, b = next_batch(step)
                 device_views(b)
                 if use_cache:
                     staged_list.append(staged_features(b))
@@ -387,7 +416,7 @@ def main(argv=None) -> state_mod.TrainState:
                 ts, grid, batches, kernels, cfg, noise=noise,
                 img_feat_staged=staged)
         else:
-            fi, batch = next_batch()
+            fi, batch = next_batch(step)
             device_views(batch)
             staged = staged_features(batch) if use_cache else None
             batch = step_mod.maybe_add_bg_ray(batch, ts.points, cfg)
@@ -455,6 +484,8 @@ def main(argv=None) -> state_mod.TrainState:
                     vis.add_scalar(step, "num_points", ts.points.num_live)
                     log_box_live(step)
 
+    if native_pipe is not None:
+        native_pipe.close()
     ckpt_mod.save_checkpoint(ckpt_dir, ts, best_psnr)
     vis.log(f"done: {max_steps} steps, best PSNR {best_psnr:.3f}")
     return ts

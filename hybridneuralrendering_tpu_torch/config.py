@@ -8,8 +8,8 @@ defaults, so that a preset here equals the JAX preset of the same name field
 by field (tests/test_torch_port_config.py checks it).  The parallel
 sub-config comes with the slice that uses it.  PRESETS carries
 the JAX package's names; the presets whose knobs the port does not run yet
-(the learnable blur kernel, the NeRF-synthetic workloads) raise
-NotImplementedError naming the ROADMAP item that ports them.
+(the NeRF-synthetic workloads) raise NotImplementedError naming the ROADMAP
+item that ports them.
 
 `serve_config()` is the serving workload and `train_config()` the training
 workload: `scannet_full` at the shapes of the JAX package's benchmark scene
@@ -80,9 +80,10 @@ class AggregatorConfig:
     The port reads the shading, fusion and training knobs: drop, the
     unique-row gather (dedup_gather, dedup_uncached, renderer.render) and
     the cached maps' reading (staged_materialize, fusion.image_fusion).
-    The knobs of unported variants (remat, chunks, fused VJP, learnable
-    blur) are carried so that presets compare field by field, and raise
-    where they are read (aggregator._check_supported)."""
+    The learnable blur kernel's knobs are read by
+    models/blur.learnable_blur_update.  The knobs of unported variants
+    (remat, chunks, fused VJP) are carried so that presets compare field by
+    field, and raise where they are read (aggregator._check_supported)."""
 
     which_agg_model: str = "viewmlp"
     agg_distance_kernel: str = "linear"
@@ -389,6 +390,19 @@ def scannet_scene101(scan: str = "scene0101_04") -> Config:
     )
 
 
+def scannet_learnable(scan: str = "scene0101_04") -> Config:
+    """The learnable blur-kernel MLP on scene101's settings
+    (scene101_learnable.sh = scene101_full.sh with learnable_blur_kernel=1).
+    As in the JAX preset, the aggregator is the default one with the
+    learnable kernel switched on."""
+    base = scannet_scene101(scan)
+    return base.replace(
+        name=f"{scan}_learnable",
+        agg=AggregatorConfig(learnable_blur_kernel=True),
+        blur=BlurConfig(add_blur_sim=True, learnable=True),
+    )
+
+
 def scannet_livingroom(scan: str = "livingroom") -> Config:
     """livingroom_full.sh: scene241 settings with dilation_max=6 and the
     symmetric-only blur-kernel bank (version 2)."""
@@ -430,7 +444,6 @@ def _unported(name: str, item: str):
     return preset
 
 
-LEARNABLE_BLUR_ITEM = "item 8, the learnable blur kernel"
 NERF_ITEM = "items 8 and 11, remat and chunked chains for the NeRF workload"
 
 
@@ -438,9 +451,8 @@ def apply_blur_overrides(cfg: Config, blur_mode: str = "preset",
                          frame_weight: int = -1) -> Config:
     """The CLI's blur overrides (JAX config.apply_blur_overrides):
     blur_mode 'preset' keeps the preset's setting, 'off' and 'bank' force
-    that simulation; frame_weight -1 keeps the preset's, 0 off, 1 on.
-    'learnable' raises NotImplementedError: the learnable blur kernel is
-    not ported."""
+    that simulation, 'learnable' the learnable-kernel MLP; frame_weight -1
+    keeps the preset's, 0 off, 1 on."""
     if blur_mode == "off":
         cfg = cfg.replace(
             blur=dataclasses.replace(cfg.blur, add_blur_sim=False,
@@ -452,9 +464,10 @@ def apply_blur_overrides(cfg: Config, blur_mode: str = "preset",
                                      learnable=False),
             agg=dataclasses.replace(cfg.agg, learnable_blur_kernel=False))
     elif blur_mode == "learnable":
-        raise NotImplementedError(
-            f"blur mode learnable is not ported yet (ROADMAP Queue 1 "
-            f"{LEARNABLE_BLUR_ITEM})")
+        cfg = cfg.replace(
+            blur=dataclasses.replace(cfg.blur, add_blur_sim=True,
+                                     learnable=True),
+            agg=dataclasses.replace(cfg.agg, learnable_blur_kernel=True))
     elif blur_mode != "preset":
         raise KeyError(f"unknown blur_mode {blur_mode}")
     if frame_weight >= 0:
@@ -466,7 +479,7 @@ def apply_blur_overrides(cfg: Config, blur_mode: str = "preset",
 PRESETS = {
     "scannet_full": scannet_full,
     "scannet_hybrid": scannet_hybrid,
-    "scannet_learnable": _unported("scannet_learnable", LEARNABLE_BLUR_ITEM),
+    "scannet_learnable": scannet_learnable,
     "scannet_scene101": scannet_scene101,
     "scannet_livingroom": scannet_livingroom,
     "scannet_vangoroom": scannet_vangoroom,

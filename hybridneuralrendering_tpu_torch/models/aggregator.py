@@ -93,7 +93,6 @@ def _check_supported(cfg: AggregatorConfig, train: bool = False) -> None:
         "tradition_attention": cfg.tradition_attention,
         "compute_dtype != float32": cfg.compute_dtype != "float32",
         "separate_color_decoder": cfg.separate_color_decoder,
-        "learnable_blur_kernel": cfg.learnable_blur_kernel,
         "a chain without block3 or an alpha head "
         "(shading_feature_mlp_layer3 == 0)":
             cfg.shading_feature_mlp_layer3 == 0,
@@ -160,6 +159,15 @@ def init(gen: torch.Generator, cfg: AggregatorConfig,
     params["color_final"] = stack(
         [final_in, final_in, 3] if cfg.large_color_final_block
         else [final_in, 3])
+    if cfg.learnable_blur_kernel:
+        # the blur-kernel MLP (models/blur.learnable_blur_update): grey GT
+        # and render patches in, K*K kernel weights (+ the identity's mix
+        # weight in modes 2 and 4) out
+        bout = cfg.learnable_blur_kernel_size ** 2
+        if cfg.learnable_blur_kernel_mode in (2, 4):
+            bout += 1
+        params["blur_kernel"] = stack(
+            [2 * cfg.learnable_blur_patch_size ** 2, 128, 128, 128, bout])
     return params
 
 

@@ -1,12 +1,18 @@
 """Blur-aware training: degrade the rendered patches before the loss
-(JAX: hybridneuralrendering_tpu/models/blur.py, the pre-defined kernel bank).
+(JAX: hybridneuralrendering_tpu/models/blur.py).
 
-The kernel bank is numpy (linear-motion streaks rotated bilinearly), built
-once on the host.  In each step every rendered patch is convolved with
-every bank kernel (normalised against the zero padding), the identity joins
-as one more candidate, and each patch keeps the candidate nearest its
-ground truth in L1.  The choice is a hard select; gradients flow through
-the chosen convolution.  The learnable-kernel variant is not ported.
+Pre-defined kernels: the kernel bank is numpy (linear-motion streaks
+rotated bilinearly), built once on the host.  In each step every rendered
+patch is convolved with every bank kernel (normalised against the zero
+padding), the identity joins as one more candidate, and each patch keeps
+the candidate nearest its ground truth in L1.  The choice is a hard select;
+gradients flow through the chosen convolution.
+
+Learnable kernels (`learnable_blur_update`): an MLP reads each patch's grey
+ground truth and render and predicts its K x K kernel, which degrades the
+render's three channels in one grouped convolution.  Both convolutions are
+cross-correlations with zero padding K//2, as JAX's "SAME"
+conv_general_dilated, and run without TF32 (device.no_tf32).
 """
 
 from __future__ import annotations
@@ -15,7 +21,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hybridneuralrendering_tpu_torch.config import BlurConfig
+from hybridneuralrendering_tpu_torch.config import (AggregatorConfig,
+                                                    BlurConfig)
+from hybridneuralrendering_tpu_torch.device import no_tf32
+from hybridneuralrendering_tpu_torch.models import mlp
 
 
 def _rotate_bilinear(img: np.ndarray, angle_deg: float) -> np.ndarray:
@@ -128,3 +137,63 @@ def blur_bank_update(rendered: torch.Tensor, gt: torch.Tensor,
     best = torch.take_along_dim(
         cand, sel[:, None, None, None, None], dim=-1)[..., 0]
     return from_patches(best.permute(0, 2, 3, 1), patch_num, patch_size)
+
+
+def _conv_grouped(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """x [1, C, H, W]; kernels [C, K, K] -> [1, C, H, W]: channel c
+    cross-correlated with kernel c, zero padding K//2."""
+    K = kernels.shape[-1]
+    return F.conv2d(x, kernels[:, None], padding=K // 2,
+                    groups=kernels.shape[0])
+
+
+def learnable_blur_update(params: dict, cfg: AggregatorConfig,
+                          rendered: torch.Tensor, gt: torch.Tensor,
+                          patch_num: int, patch_size: int) -> torch.Tensor:
+    """Degrade `rendered` [R, 3] with per-patch MLP-predicted kernels (JAX
+    blur.learnable_blur_update, the reference's `faster_version` path).
+
+    params["blur_kernel"] maps the grey GT and render patches
+    [P, 2 * patch_size^2] to sigmoid outputs: kernel norm 0 divides the
+    K x K kernel by its sum, any other norm takes a softmax; kernel mode 4
+    mixes in the identity kernel by the last output, other modes do not.
+    Boundary mode 0 divides by the kernel's mass inside the patch, 1 adds
+    the missing mass times the pixel, 2 as 1 with the mass taken from the
+    detached kernel; other modes raise NotImplementedError, as in JAX."""
+    if cfg.boundary_mode not in (0, 1, 2):
+        raise NotImplementedError(f"boundary_mode {cfg.boundary_mode}")
+    K = cfg.learnable_blur_kernel_size
+    ps = patch_size
+    rp = to_patches(rendered, patch_num, ps)              # [P, ps, ps, 3]
+    gp = to_patches(gt, patch_num, ps)
+    P = rp.shape[0]
+    gray = torch.cat([gp.mean(dim=-1).reshape(P, -1),
+                      rp.mean(dim=-1).reshape(P, -1)], dim=-1)
+    pred = torch.sigmoid(mlp.mlp_apply(params["blur_kernel"], gray,
+                                       cfg.act_type))     # [P, K*K(+1)]
+    if cfg.learnable_blur_kernel_norm == 0:
+        kern = pred[:, :K * K].reshape(P, K, K)
+        kern = kern / kern.sum(dim=(1, 2), keepdim=True)
+    else:
+        kern = torch.softmax(pred[:, :K * K], dim=-1).reshape(P, K, K)
+    if cfg.learnable_blur_kernel_mode == 4:
+        wmix = pred[:, -1][:, None, None]
+        ident = torch.zeros((K, K), dtype=kern.dtype, device=kern.device)
+        ident[K // 2, K // 2] = 1.0
+        kern = wmix * kern + (1.0 - wmix) * ident
+        kern = kern / kern.sum(dim=(1, 2), keepdim=True)
+
+    # patch i's three channels take patch i's kernel (jnp.repeat's order)
+    kern_g = kern.repeat_interleave(3, dim=0)             # [P*3, K, K]
+    x = rp.permute(0, 3, 1, 2).reshape(1, P * 3, ps, ps)
+    ones = torch.ones_like(x)
+    with no_tf32():
+        conv = _conv_grouped(x, kern_g)
+        if cfg.boundary_mode == 0:
+            blurred = conv / (_conv_grouped(ones, kern_g) + 1e-10)
+        else:
+            mass = _conv_grouped(ones, kern_g.detach()
+                                 if cfg.boundary_mode == 2 else kern_g)
+            blurred = conv + (1.0 - mass) * x
+    blurred = blurred.reshape(P, 3, ps, ps).permute(0, 2, 3, 1)
+    return from_patches(blurred, patch_num, ps)

@@ -109,6 +109,22 @@ def linearize(coords: torch.Tensor, geom: GridGeometry,
     return torch.where(inb, lin, capacity)
 
 
+def linearize_padz(coords: torch.Tensor, geom: GridGeometry,
+                   capacity: int) -> torch.Tensor:
+    """Voxel coords -> linear id in coor2occ's z-padded layout: one pad
+    slot at each end of every z column (stride d2+2, offset +1), so the
+    3-wide z window around any in-bounds voxel is one contiguous slice.
+    z may lie in [-1, d2]; x or y out of bounds, or z beyond that ->
+    `capacity`."""
+    d0, d1, d2 = geom.dims
+    inb = ((coords[..., 0] >= 0) & (coords[..., 0] < d0)
+           & (coords[..., 1] >= 0) & (coords[..., 1] < d1)
+           & (coords[..., 2] >= -1) & (coords[..., 2] <= d2))
+    lin = ((coords[..., 0] * d1 + coords[..., 1]) * (d2 + 2)
+           + coords[..., 2] + 1)
+    return torch.where(inb, lin, capacity)
+
+
 def neighbor_offsets(size3) -> np.ndarray:
     """Integer offsets of a centred size3 window: [-s//2, (s+1)//2) per
     axis, x slowest."""
@@ -210,10 +226,10 @@ def build_grid(xyz: torch.Tensor, point_mask: torch.Tensor,
     in_cap = valid & (occ_idx < max_o)
     first = head & in_cap
 
-    # coor2occ in the z-padded layout (stride d2+2, offset +1)
+    # coor2occ in the z-padded layout (linearize_padz)
     coor2occ = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    svid_pad = (svid // d2) * (d2 + 2) + (svid % d2) + 1
-    _set_drop(coor2occ, svid_pad[first], occ_idx[first].to(torch.int32))
+    _set_drop(coor2occ, linearize_padz(coords[spid[first]], geom, cap),
+              occ_idx[first].to(torch.int32))
 
     keep = in_cap & (rank < P)
     ko, kr, kp = occ_idx[keep], rank[keep], spid[keep]

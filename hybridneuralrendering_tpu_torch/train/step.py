@@ -1,10 +1,11 @@
 """One training step (JAX: hybridneuralrendering_tpu/train/step.py,
 `train_step`).
 
-render (train mode: jittered candidates, image-feature drop) -> blur-bank
-degradation of the predicted colours -> masked losses with the frame
-weight -> backward -> two Adams: the point table through the Adam kernel
-(ops/adam.py) at `plr`, the network parameters at `lr` through
+render (train mode: jittered candidates, image-feature drop) -> blur
+degradation of the predicted colours (the learnable kernel's MLP or the
+kernel bank) -> masked losses with the frame weight -> backward -> two
+Adams: the point table through the Adam kernel (ops/adam.py) at `plr`, the
+network parameters (the blur MLP's among them) at `lr` through
 torch._foreach_* operations that repeat optax's arithmetic.  Without
 `img_feat_staged` the pyramid CNN runs inside the step (the uncached,
 CNN-burst step); with it the step reads cached stage maps
@@ -67,20 +68,24 @@ def forward_with_blur(params: Dict, points: npts.NeuralPoints,
                       blur_kernels: Optional[torch.Tensor], train: bool,
                       noise: Optional[torch.Tensor] = None,
                       img_feat_staged=None) -> Dict:
-    """Render, then (in training) degrade the predicted colours by the
+    """Render, then (in training) degrade the predicted colours: by the
+    learnable blur kernel's MLP when the aggregator has one, else by the
     best bank kernel per patch."""
     out = renderer.render(params, points, grid, batch, cfg, train=train,
                           noise=noise, img_feat_staged=img_feat_staged)
     if train:
+        pn = cfg.sampling.dilation_patch_num
+        ps = cfg.sampling.dilation_patch_size
         if cfg.agg.learnable_blur_kernel:
-            raise NotImplementedError("the learnable blur kernel is not "
-                                      "ported yet")
-        if cfg.blur.add_blur_sim and blur_kernels is not None:
+            with record_function("train.blur"):
+                out["coarse_raycolor"] = blur_mod.learnable_blur_update(
+                    params["aggregator"], cfg.agg, out["coarse_raycolor"],
+                    batch["gt_image"], pn, ps)
+        elif cfg.blur.add_blur_sim and blur_kernels is not None:
             with record_function("train.blur"):
                 out["coarse_raycolor"] = blur_mod.blur_bank_update(
                     out["coarse_raycolor"], batch["gt_image"], blur_kernels,
-                    cfg.sampling.dilation_patch_num,
-                    cfg.sampling.dilation_patch_size)
+                    pn, ps)
     return out
 
 

@@ -144,6 +144,36 @@ def test_port_save_load_round_trip(tmp_path, configs):
                       tck.flatten_state(st, 1.0))
 
 
+def _learnable(pkg):
+    import dataclasses
+    cfg = pkg.tiny_test()
+    return cfg.replace(agg=dataclasses.replace(
+        cfg.agg, learnable_blur_kernel=True, learnable_blur_patch_size=4))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_learnable_checkpoint_both_ways(tmp_path, writer):
+    """A learnable run's state: the blur MLP's leaves and their Adam
+    moments go from a JAX file into the port and from a port file into
+    JAX, leaf for leaf."""
+    jc, tc = _learnable(JC), _learnable(TC)
+    ts = jax_state(jc, seed=4)
+    path = jck.save_checkpoint(str(tmp_path / "jax"), ts, best_psnr=3.5)
+    st, _ = tck.load_checkpoint(path, tc, device=CPU)
+    want = jax_flat(ts)
+    blur = [k for k in want if "blur_kernel" in k]
+    assert len(blur) == 3 * 8
+    if writer == "port":
+        path = tck.save_checkpoint(str(tmp_path / "port"), st, 3.5)
+        back, _ = jck.load_checkpoint(path, jax_template(jc))
+        assert_flat_equal(jax_flat(back), want)
+    else:
+        flat = tck.flatten_state(st)
+        del flat["__best_psnr__"]
+        assert_flat_equal(flat, want)
+        assert len(st.params["aggregator"]["blur_kernel"]) == 4
+
+
 def test_load_refuses_other_shapes(tmp_path, configs):
     jc, tc = configs
     path = jck.save_checkpoint(str(tmp_path), jax_state(jc))

@@ -99,8 +99,8 @@ def test_train_config_is_the_bench_training_shape(monkeypatch):
 
 
 EVAL_PRESETS = ["scannet_full", "scannet_hybrid", "scannet_scene101",
-                "scannet_livingroom", "scannet_vangoroom", "fixture_room",
-                "tiny"]
+                "scannet_learnable", "scannet_livingroom",
+                "scannet_vangoroom", "fixture_room", "tiny"]
 ALL_SUBCONFIGS = SUBCONFIGS + TRAIN_SUBCONFIGS
 
 
@@ -124,7 +124,7 @@ def test_presets_carry_the_jax_names():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("scannet_learnable", "item 8"), ("nerf_synth_points", "items 8 and 11"),
+    ("nerf_synth_points", "items 8 and 11"),
     ("nerf_synth_hybrid", "items 8 and 11"),
     ("fixture_nerf_points", "items 8 and 11"),
     ("fixture_nerf_hybrid", "items 8 and 11")])
@@ -135,10 +135,11 @@ def test_unported_presets_raise(name, item):
         TC.PRESETS[name]("scan")
 
 
-@pytest.mark.parametrize("mode", ["preset", "off", "bank"])
+@pytest.mark.parametrize("mode", ["preset", "off", "bank", "learnable"])
 @pytest.mark.parametrize("frame_weight", [-1, 0, 1])
 def test_blur_overrides_equal(mode, frame_weight):
-    for name in ("scannet_full", "scannet_hybrid", "tiny"):
+    for name in ("scannet_full", "scannet_hybrid", "scannet_learnable",
+                 "tiny"):
         jc = JC.apply_blur_overrides(JC.PRESETS[name](), mode, frame_weight)
         tc = TC.apply_blur_overrides(TC.PRESETS[name](), mode, frame_weight)
         for sub in ALL_SUBCONFIGS:
@@ -147,8 +148,10 @@ def test_blur_overrides_equal(mode, frame_weight):
 
 
 def test_blur_override_learnable_and_unknown_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        TC.apply_blur_overrides(TC.scannet_full(), "learnable")
+    """An unknown blur mode raises; 'learnable' is ported and no longer
+    does (test_blur_overrides_equal)."""
+    assert TC.apply_blur_overrides(TC.scannet_full(),
+                                   "learnable").agg.learnable_blur_kernel
     with pytest.raises(KeyError):
         TC.apply_blur_overrides(TC.scannet_full(), "sometimes")
 

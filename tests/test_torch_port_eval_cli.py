@@ -203,7 +203,6 @@ def test_entry_points_default_to_the_card(clis):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--blur-mode", "learnable"], "item 8"),
     (["--preset", "nerf_synth_points"], "items 8 and 11")])
 def test_cli_refuses_unported(clis, flags, match):
     _, (root, scan) = clis

@@ -3,8 +3,10 @@ plain PyTorch versions (K-min bit for bit, also on the edge rows of
 torch_port_select_rows.py; the shading chain within
 ops/shading_chain.tolerance, a relative L2 error; the row scan bit for bit
 on int32 and within ops/scan.tolerance on float32), the voxel grid, a
-render and a training step (uncached and cached) on the card against the
-same on the CPU.  They skip where torch.cuda.is_available() is false.
+render and a training step (uncached and cached; also with the learnable
+blur kernel) on the card against the same on the CPU, the per-voxel K-NN
+against the CPU and the supervoxel path, and the native batch sampler
+built on this machine.  They skip where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -25,6 +27,7 @@ from hybridneuralrendering_tpu_torch.ops import adam as TA
 from hybridneuralrendering_tpu_torch.ops import scan as TSCAN
 from hybridneuralrendering_tpu_torch.ops import segment_sum as TSS
 from hybridneuralrendering_tpu_torch.ops import shading_chain as TSC
+from hybridneuralrendering_tpu_torch.ops import query as tq
 from hybridneuralrendering_tpu_torch.ops import select as TS
 from hybridneuralrendering_tpu_torch.ops import voxel_grid as TVG
 from hybridneuralrendering_tpu_torch.train import pyramid_cache as TPC
@@ -992,3 +995,128 @@ def test_probe_and_grow_and_prune_on_card(cuda, tmp_path):
         for name in ("coor2occ", "occ_pnts", "occ_numpnts", "occ_bits"):
             assert torch.equal(getattr(got, name).cpu(),
                                getattr(ref, name)), name
+
+
+# ------------------------------------- learnable blur, native sampler, K-NN
+
+def _learnable_tiny():
+    cfg = TC.tiny_test()
+    return cfg.replace(
+        agg=dataclasses.replace(cfg.agg, learnable_blur_kernel=True,
+                                learnable_blur_patch_size=4),
+        blur=dataclasses.replace(cfg.blur, learnable=True),
+        loss=dataclasses.replace(cfg.loss, use_frame_weight=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cached", [False, True])
+def test_learnable_train_step_on_card_matches_cpu(cuda, cached):
+    """tiny_test with the learnable blur kernel (9 x 9, mode 4, patches of
+    4): one step on the card and on the CPU from one state, uncached or
+    cached, with the launches of test_cached_train_step_on_card_matches_cpu
+    (a row scan on the cached step only).  Loss items rtol 1e-4 / atol
+    1e-6; gradients, the blur MLP's among them, rtol 1e-4 / atol 1e-5 *
+    max|g| (the grouped convolution runs without TF32)."""
+    cfg = _learnable_tiny()
+    counters = {"k_smallest": TS.k_smallest, "segment_sum": TSS.segment_sum,
+                "adam_table": TA.adam_table,
+                "cumsum_rows": TSCAN.cumsum_rows}
+    want = {"k_smallest": 1, "segment_sum": 1 if cached else 2,
+            "adam_table": 1, "cumsum_rows": int(cached)}
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        assert "blur_kernel" in params["aggregator"]
+        st = tstate.create_train_state(params, points, cfg, device=dev)
+        batch = synthetic.make_synthetic_batch(cfg, device=dev)
+        noise = torch.rand((cfg.sampling.rays_per_batch,
+                            cfg.querier.z_depth_dim),
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+        staged = None
+        if cached:
+            views = batch["images_nearest"]
+            staged = (views, TPC.PyramidCache(cfg, dtype=torch.float32)
+                      .get_stack(st.params, views, range(len(views))))
+        before = {k: f.launches for k, f in counters.items()}
+        items, g_net, g_table = tstep.loss_and_grads(
+            st, grid, batch, None, cfg, noise=noise, img_feat_staged=staged)
+        tstep.apply_updates(st, g_net, g_table, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: f.launches - before[k]
+                    for k, f in counters.items()} == want
+        g_blur = tstate.tree_leaves(g_net["aggregator"]["blur_kernel"])
+        assert all(bool(g.any()) for g in g_blur)
+        res[dev.type] = (items, g_table, torch.cat([
+            x.reshape(-1) for x in tstate.tree_leaves(g_net)]),
+            torch.cat([g.reshape(-1) for g in g_blur]))
+    (ki, *kg), (ci, *cg) = res["cuda"], res["cpu"]
+    for k, v in ci.items():
+        torch.testing.assert_close(ki[k].cpu(), v, rtol=1e-4, atol=1e-6)
+    for got, ref in zip(kg, cg):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
+                                   atol=float(1e-5 * ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_native_sampler_builds_and_feeds_the_card(cuda):
+    """The native sampler builds on this machine; its pipeline gives
+    assemble_batch's batches seed for seed at the training preset's
+    sampling, and the batch lands on the card unchanged."""
+    import numpy as np
+
+    from hybridneuralrendering_tpu_torch.data import native_sampler as NS
+    s = TC.train_config().sampling
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    intr = np.array([[577.9, 0, 319.5], [0, 577.9, 239.5], [0, 0, 1]],
+                    np.float32)
+    rot = np.eye(3, dtype=np.float32)
+    args = (img, s.edge_filter, s.dilation_patch_num, s.dilation_patch_size,
+            s.dilation_min, s.dilation_max, intr, rot)
+    with NS.PrefetchPipeline(2) as pipe:
+        seeds = {pipe.submit(*args, seed): seed for seed in range(4)}
+        popped = [pipe.pop() for _ in seeds]
+    for ticket, xy, rgb, dirs in popped:
+        wxy, wrgb, wdirs = NS.assemble_batch(*args, seeds[ticket])
+        assert np.array_equal(xy, wxy.reshape(-1, 2))
+        assert np.array_equal(rgb, wrgb) and np.array_equal(dirs, wdirs)
+        flat = xy.astype(int)
+        assert np.array_equal(rgb, img[flat[:, 1], flat[:, 0]])
+        card = torch.as_tensor(dirs, device=cuda)
+        assert torch.equal(card.cpu(), torch.as_tensor(dirs))
+        assert torch.allclose(card.norm(dim=-1), torch.ones(
+            len(dirs), device=cuda), atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_per_voxel_knn_on_card_equals_cpu_and_supervoxel(cuda):
+    """query_points with supervoxel off on tiny_test's scene: the card's
+    masks and ids equal the CPU's, one K-min launch at C = 27 * P; and
+    equal to the supervoxel path's masks and neighbour sets on a scene
+    where no voxel or node overflows."""
+    cfg = TC.tiny_test()
+    pv = dataclasses.replace(cfg.querier, supervoxel=False)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        batch = synthetic.make_synthetic_batch(cfg, device=dev)
+        near, far = cfg.render.near_plane, cfg.render.far_plane
+        before = TS.k_smallest.launches
+        out = tq.query_points(grid, points.xyz, batch["campos"],
+                              batch["raydir"], pv, near, far)
+        sv = tq.query_points(grid, points.xyz, batch["campos"],
+                             batch["raydir"], cfg.querier, near, far)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert TS.k_smallest.launches - before == 2
+        res[dev.type] = (out, sv)
+    (kout, ksv), (cout, csv) = res["cuda"], res["cpu"]
+    for k in ("sample_mask", "ray_mask", "pnt_mask", "sample_pidx"):
+        assert torch.equal(getattr(kout, k).cpu(), getattr(cout, k)), k
+        if k != "sample_pidx":
+            assert torch.equal(getattr(kout, k), getattr(ksv, k)), k
+    assert kout.pnt_mask.any()
+    assert torch.equal(torch.sort(kout.sample_pidx, dim=-1).values,
+                       torch.sort(ksv.sample_pidx, dim=-1).values)

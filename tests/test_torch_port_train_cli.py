@@ -103,11 +103,12 @@ def scene(tmp_path_factory, mp):
     return base, root, scan
 
 
-def _jax_draws():
-    """JAX's draws for seed SEED: initial parameters, embeddings and the
-    noise of each step, as the port's draw functions return them."""
+def _jax_draws(preset=_preset):
+    """JAX's draws for seed SEED under preset(JC): initial parameters,
+    embeddings and the noise of each step, as the port's draw functions
+    return them."""
     key = jax.random.PRNGKey(SEED)
-    jc = _preset(JC)
+    jc = preset(JC)
     params = jax.tree_util.tree_map(np.asarray,
                                     jrenderer.init_params(key, jc))
     R, Z = jc.sampling.rays_per_batch, jc.querier.z_depth_dim
@@ -132,9 +133,10 @@ def _jax_draws():
                 step_noise=step_noise)
 
 
-def _run(label, argv, capture=None):
+def _run(label, argv, capture=None, preset=_preset):
     """One CLI run; `capture` collects the xyz each package's
-    init_from_arrays receives."""
+    init_from_arrays receives; the port gets JAX's draws under
+    preset(JC)."""
     mp = pytest.MonkeyPatch()
     try:
         if label == "jax":
@@ -143,7 +145,7 @@ def _run(label, argv, capture=None):
                 mp.setattr(jnpts, "init_from_arrays", lambda xyz, *a, **k: (
                     capture.append(np.array(xyz)), real(xyz, *a, **k))[1])
             return jcli.main(argv)
-        for name, fn in _jax_draws().items():
+        for name, fn in _jax_draws(preset).items():
             mp.setattr(tcli, name, fn)
         if capture is not None:
             real = tnpts.init_from_arrays
@@ -297,10 +299,7 @@ def test_final_checkpoint_loads_in_both(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--train-mode", "ff"], "item 14"), (["--load-points", "0"], "item 14"),
-    (["--native-prefetch", "2"], "item 5"),
-    (["--blur-mode", "learnable"], "item 8"),
-    (["--preset", "scannet_learnable"], "item 8")])
+    (["--train-mode", "ff"], "item 14"), (["--load-points", "0"], "item 14")])
 def test_unported_flags_raise_before_any_work(tmp_path, flags, item):
     argv = ["--data-root", str(tmp_path / "none"), "--checkpoints-dir",
             str(tmp_path / "ck"), "--device", "cpu"] + flags

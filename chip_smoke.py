@@ -96,14 +96,35 @@ Phases, each printing one JSON progress line:
                  480x640 through numpy get_batch and through the native
                  sampler, the native batch's checks, device_batch and the
                  tracker's float().
+ 12. NeRF        nerf_train_config() (fixture_nerf_points: SR = 80, the
+                 chain in 16 rematerialised chunks, white background) on
+                 an object scene written in the Blender layout (20 train
+                 and 4 test frames at 400x400, a fused.ply of 400,000
+                 surface points): nerf_scene (its grid: two row scans);
+                 the chain kernels at the workload's pieces (163,840 rows
+                 a request's, 144,000 a step's; K-min at its two shapes is
+                 in phase 3); serve_nerf, 4 requests of 4,096 rays (per
+                 request one K-min and 16 chain forwards), rays/s and
+                 peak; train_nerf, 1 + 5 steps of 3,600 rays (per step one
+                 K-min, 32 chain forwards with remat's recompute, 16 of
+                 each backward kernel, one segment sum held against its
+                 plain version, one Adam), then one step each with remat
+                 off, one chunk and both, their times and peaks;
+                 train_check_nerf, a 256-ray step on the card against the
+                 CPU with three planted faults it must reject (the chunks
+                 joined out of order, the last chunk's dW alone, a black
+                 background); train_cli_nerf, cli.train --preset
+                 fixture_nerf_points --load-points 1 for 60 steps and
+                 cli.test on 2 whole test frames (40 chunks a frame), each
+                 call's launches equal to its schedule's.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step, each with the blur bank and with
-the learnable kernel, and prints the kernels that took the most device
-time.
+the learnable kernel, and one more NeRF request and NeRF step, and prints
+the kernels that took the most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
-the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli
-and train_cli runs), the card as
+the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli,
+train_cli, serve_nerf, train_nerf and train_cli_nerf runs), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -119,6 +140,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -154,6 +176,11 @@ CHECK_PATCHES, CHECK_PATCH_SIZE = 2, 8
 DW_FAULT_ROWS = 4_096
 # the per-voxel K-NN's candidates a sample: 27 voxels of P = 26 points
 PER_VOXEL_COLUMNS = 27 * 26
+# the NeRF workload's K-min (SR = 80, Ps = 64, K = 8): a step's 3,600 rays
+# and a request's 4,096; and its chain pieces (R * SR * K rows over
+# chain_chunks = 16): a request's and a step's
+NERF_SELECT_SHAPES = [(3_600 * 80, 64, 8), (4_096 * 80, 64, 8)]
+NERF_CHAIN_ROWS = (4_096 * 80 * 8 // 16, 3_600 * 80 * 8 // 16)
 # published H100 SXM peaks (dense): bytes/s of HBM3, float32 op/s outside
 # the tensor cores, bf16 op/s on them
 HBM_BYTES_PER_S = 3.35e12
@@ -371,7 +398,7 @@ def phase_kernels(cfg):
     pv = PER_VOXEL_COLUMNS
     shapes = [main_shape, (75_264, cfg.querier.Ps, K), (75_264, 64, 8),
               (4_096, pv, 8), (RAYS_PER_REQUEST * cfg.querier.SR, pv, K),
-              (75_264, pv, K)]
+              (75_264, pv, K)] + NERF_SELECT_SHAPES
     rows = {}
     for S, C, k in shapes:
         d, ids = _select_inputs(S, C, gen)
@@ -1032,7 +1059,7 @@ def _old_chain_grads(p, cfg, emb, dists, extras, dfeat, dalpha):
     return dict(zip(names, g))
 
 
-def phase_kernels_chain(cfg):
+def phase_kernels_chain(cfg, rows_=None, label=""):
     """The fused shading chain's kernels against their plain versions on the
     card (ops/shading_chain.tolerance, a relative L2 error per output) with
     random full-width weights: the forward at a serving chunk's rows
@@ -1042,20 +1069,22 @@ def phase_kernels_chain(cfg):
     (block3's extra columns read one column off) in the forward, and
     old_chain, the per-layer chain the kernels replace, which rounds more
     (bf16 end to end), in the forward and the backward.  old_chain is also
-    the yardstick, timed at the same rows."""
+    the yardstick, timed at the same rows.  `rows_` = (serving rows,
+    training rows) replaces those two counts, and `label` prefixes the
+    rows' names (the NeRF workload's chain pieces)."""
     import torch
     from hybridneuralrendering_tpu_torch.models import renderer
     from hybridneuralrendering_tpu_torch.ops import shading_chain as SC
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     a = cfg.agg
-    dt_name = a.shading_dtype
+    dt_name = SC.chain_dtype(a)
     dt = SC.COMPUTE_DTYPES[dt_name]
     params = renderer.init_params(cfg, seed=2, device=DEVICE)["aggregator"]
     chain = {k: params[k] for k in ("block1", "block2", "block3", "alpha")
              if k in params}
     kpr = cfg.querier.SR * cfg.querier.K
-    serve_rows = RAYS_PER_REQUEST * kpr
-    train_rows = cfg.sampling.rays_per_batch * kpr
+    serve_rows, train_rows = rows_ or (RAYS_PER_REQUEST * kpr,
+                                       cfg.sampling.rays_per_batch * kpr)
     rows = {}
 
     def over(errs):
@@ -1121,9 +1150,9 @@ def phase_kernels_chain(cfg):
         log_kernel("shading_chain_fwd", row)
         return row, (emb, dists, extras, extra, layout, w, b)
 
-    rows["fwd"], _ = forward_row(serve_rows, "serve chunk")
+    rows["fwd"], _ = forward_row(serve_rows, label + "serve chunk")
     rows["fwd_train"], (emb, dists, extras, extra, layout, w, b) = \
-        forward_row(train_rows, "training step")
+        forward_row(train_rows, label + "training step")
 
     n = train_rows
     F = layout.layers[layout.na + layout.nb - 1].nout
@@ -1191,7 +1220,7 @@ def phase_kernels_chain(cfg):
                           gscr[:, s.goff:s.goff + s.np])
                  for s in layout.layers], dbpart.sum(0))
 
-    common = dict(rows="training step", tolerance={"grad": tol},
+    common = dict(rows=label + "training step", tolerance={"grad": tol},
                   max_abs_err=max_err)
     # Bounds count what each kernel's function needs.  chain_bwd: the
     # recompute and dX products (2x the forward's), reading the inputs,
@@ -1234,7 +1263,8 @@ def phase_kernels_chain(cfg):
     for k in ("bwd", "dw"):
         log_kernel(f"shading_chain_{k}", rows[k])
     whole_bound, _ = _bf16_bound(raw_in + wbytes, 3 * flops)
-    log("chain", rows=n, fused_fwd_bwd_ms=cuda_ms(fused_fwd_bwd, 5),
+    log("chain", rows=n, label=label or None,
+        fused_fwd_bwd_ms=cuda_ms(fused_fwd_bwd, 5),
         old_chain_fwd_bwd_ms=cuda_ms(old_fwd_bwd, 5),
         backward_ms=cuda_ms(lambda: SC.backward_on_card(*args), 5),
         bound_fwd_bwd_ms=whole_bound, scratch_bytes=scratch)
@@ -1695,7 +1725,8 @@ def _cached_faults():
         _Planted(npts, "cumsum_rows", exclusive), "item_rel_err")}
 
 
-def phase_train_check(cfg, points, grid, grid_c, params, learnable=False):
+def phase_train_check(cfg, points, grid, grid_c, params, learnable=False,
+                      nerf_ds=None):
     """One step of CHECK_PATCHES^2 patches of CHECK_PATCH_SIZE^2 rays from
     one state on the card and on the CPU (plain versions).  The bf16
     chains round at other points on the two devices.  The card's step must
@@ -1722,8 +1753,13 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False):
     that rejects it over that reading's limit.  With `learnable` (cfg and
     params with the learnable blur kernel) it is one uncached step,
     `train_check_learnable`, with _learnable_faults(): the blur MLP's
-    gradient is one of the network's checked parts."""
+    gradient is one of the network's checked parts.  With `nerf_ds` (a
+    NerfSynthScene of cfg = nerf_train_config()) it is one uncached step
+    of CHECK_PATCHES^2 * CHECK_PATCH_SIZE^2 random rays of train frame 0,
+    SR = 80 and K = 8, the chain in its 16 rematerialised chunks,
+    `train_check_nerf`, with _nerf_faults()."""
     import dataclasses
+    import numpy as np
     import torch
     from hybridneuralrendering_tpu_torch.data import synthetic
     from hybridneuralrendering_tpu_torch.models import blur
@@ -1741,6 +1777,13 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False):
     R = small.sampling.rays_per_batch
     o = small.optim
     arrays = synthetic.batch_arrays(small, seed=99)
+    if nerf_ds is not None:
+        from hybridneuralrendering_tpu_torch.data import sampling
+        from hybridneuralrendering_tpu_torch.device import HOST_KEYS
+        pix = sampling.sample_pixels(small.sampling, *small.image_hw,
+                                     np.random.default_rng(99))
+        arrays = {k: v for k, v in nerf_ds.get_batch(
+            0, pixelcoords=pix).items() if k not in HOST_KEYS}
     noise = torch.rand((R, small.querier.z_depth_dim),
                        generator=torch.Generator().manual_seed(5))
     bank = torch.as_tensor(blur.generate_kernel_bank(small.blur))
@@ -1868,6 +1911,9 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False):
 
     if learnable:
         check("train_check_learnable", False, _learnable_faults())
+        return
+    if nerf_ds is not None:
+        check("train_check_nerf", False, _nerf_faults())
         return
     check("train_check", False, _faults(points.capacity))
     check("train_check_cached", True, _cached_faults())
@@ -2207,25 +2253,37 @@ def _cli_call(cli_train, argv, frames):
         torch.cuda.max_memory_allocated()
 
 
-def _predicted_launches(cfg, rec, launches, probe_chunks, eval_chunks):
-    """Each kernel's launches that the call's schedule gives: per frame of
-    a step one K-min, chain forward, chain_bwd and chain_dw, two segment
-    sums uncached and one cached (the point table's; the pyramid map's
-    only in the burst), one row scan cached (the dedup gather's ranks);
-    per step one table Adam; per probed and per evaluated frame one K-min
-    and one chain forward a chunk; two row scans a grid build (voxels and
-    supervoxels) and two a grow (the new points' and the free slots'
-    ranks)."""
-    frames = sum(f for _, f, _, _ in rec.steps)
-    cached = sum(f for c, f, _, _ in rec.steps if c)
-    renders = (rec.probe_frames * probe_chunks
-               + rec.eval_frames * eval_chunks)
+def _predicted_launches(cfg, launches, steps=(), renders=0, grids=0,
+                        grows=0):
+    """Each kernel's launches (every key of `launches`) that a schedule
+    gives: `steps` holds each step's (cached, frames), `renders` counts
+    the eval chunks of the probed, evaluated and served frames.  Per frame
+    of a step one K-min; the chain in chain_chunks pieces (when they
+    divide its rays, as models/aggregator runs it) forward, again forward
+    in remat's recompute, and backward (chain_bwd, chain_dw); one segment
+    sum for the point table, and with image fusion (use_nearest > 0) one
+    more for the pyramid map when the frame is uncached; one row scan
+    cached (the dedup gather's ranks).  Per step one table Adam.  Per eval
+    chunk one K-min and the chain's pieces forward.  Two row scans a grid
+    build (voxels and supervoxels) and two a grow (the new points' and the
+    free slots' ranks)."""
+    nc = cfg.agg.chain_chunks
+
+    def pieces(rays):
+        return nc if nc > 1 and rays % nc == 0 else 1
+
+    p, e = pieces(cfg.sampling.rays_per_batch), pieces(cfg.sampling.eval_rays)
+    fwd = p * (2 if cfg.agg.remat_chain else 1)
+    frames = sum(f for _, f in steps)
+    cached = sum(f for c, f in steps if c)
+    maps = frames - cached if cfg.agg.use_nearest > 0 else 0
     want = dict.fromkeys(launches, 0)
     want.update(
-        k_smallest=frames + renders, shading_chain_fwd=frames + renders,
-        shading_chain_bwd=frames, shading_chain_dw=frames,
-        segment_sum=2 * frames - cached, adam_table=len(rec.steps),
-        cumsum_rows=2 * rec.grids + cached + 2 * rec.grows)
+        k_smallest=frames + renders,
+        shading_chain_fwd=frames * fwd + renders * e,
+        shading_chain_bwd=frames * p, shading_chain_dw=frames * p,
+        segment_sum=frames + maps, adam_table=len(steps),
+        cumsum_rows=2 * grids + cached + 2 * grows)
     return want
 
 
@@ -2281,8 +2339,10 @@ def phase_train_cli():
             st, rec, launches, seconds, peak = _cli_call(cli_train, argv,
                                                          frames)
             rec.eval_frames = len(rec.of("eval_frame"))
-            want = _predicted_launches(cfg, rec, launches, probe_chunks,
-                                       eval_chunks)
+            want = _predicted_launches(
+                cfg, launches, [(c, f) for c, f, _, _ in rec.steps],
+                rec.probe_frames * probe_chunks
+                + rec.eval_frames * eval_chunks, rec.grids, rec.grows)
             if launches != want:
                 raise AssertionError(f"cli.train launched {launches}, the "
                                      f"schedule gives {want}")
@@ -2505,6 +2565,393 @@ def phase_native_sampler(root, cfg):
         raise AssertionError(f"the native batch fails its checks: {checks}")
 
 
+# ------------------------------------------------------ the NeRF workload
+# nerf_train_config() (fixture_nerf_points, the JAX bench's second field) on
+# the smoke's object scene: write_blender_scene's sphere on a box,
+# NERF_FRAMES train and test frames at 400x400 and a fused.ply of
+# config.NERF_NUM_POINTS surface points; serving NERF_REQUESTS requests of
+# NERF_RAYS_PER_REQUEST rays (one eval chunk each) from test frame 0's middle
+# rows; the trainer CLI NERF_CLI_STEPS steps, then cli.test on
+# NERF_CLI_SCORED whole test frames
+NERF_SCAN = "objsim"
+NERF_FRAMES = (20, 4)
+NERF_REQUESTS, NERF_RAYS_PER_REQUEST = 4, 4_096
+NERF_CLI_STEPS, NERF_CLI_SCORED = 60, 2
+
+
+def phase_nerf_scene(root):
+    """The smoke's object scene written in the Blender layout under root;
+    its fused.ply cloud on the card with embeddings from a seed, the grid
+    (two row scans) and random full-width parameters."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.data.nerf_synth import NerfSynthScene
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+    from hybridneuralrendering_tpu_torch.models import renderer
+    from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+    cfg = config.nerf_train_config()
+    t0 = time.perf_counter()
+    synthetic.write_blender_scene(root, NERF_SCAN, *NERF_FRAMES,
+                                  hw=cfg.image_hw,
+                                  num_points=config.NERF_NUM_POINTS)
+    write_s = time.perf_counter() - t0
+    train_ds = NerfSynthScene(root, NERF_SCAN, cfg, "train")
+    test_ds = NerfSynthScene(root, NERF_SCAN, cfg, "test")
+    xyz = train_ds.load_init_points()
+    emb = np.random.default_rng(0).standard_normal(
+        (len(xyz), cfg.points.feature_dim)) * 0.1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_launches()
+    scans = []
+    real = VG.cumsum_rows
+    VG.cumsum_rows = lambda x: scans.append(x.clone()) or real(x)
+    try:
+        points = npts.init_from_arrays(xyz, cfg.points, embedding=emb,
+                                       device=DEVICE)
+        grid = VG.grid_of(points.xyz, points.mask, cfg.querier)
+        torch.cuda.synchronize()
+    finally:
+        VG.cumsum_rows = real
+    build_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = _predicted_launches(cfg, launches, grids=1)
+    # the grid's two row scans held against the plain version at the
+    # workload's shapes (int32 head flags)
+    if len(scans) != want["cumsum_rows"]:
+        raise AssertionError(f"the NeRF grid build passed {len(scans)} "
+                             f"row scans through VG.cumsum_rows, want "
+                             f"{want['cumsum_rows']}")
+    for x in scans:
+        scan_row(x, f"NeRF grid: {x.shape[0]:,} keys")
+    q = cfg.querier
+    if (launches != want or len(xyz) != config.NERF_NUM_POINTS
+            or int(grid.num_occ) >= q.max_o
+            or int(grid.num_nodes) >= q.max_nodes):
+        raise AssertionError(f"the NeRF scene: {len(xyz)} points, "
+                             f"{int(grid.num_occ)} voxels, "
+                             f"{int(grid.num_nodes)} nodes, launches "
+                             f"{launches}")
+    params = renderer.init_params(cfg, seed=0, device=DEVICE)
+    log("nerf_scene", points=int(points.num_live), capacity=points.capacity,
+        occupied_voxels=int(grid.num_occ), max_o=q.max_o,
+        supervoxel_nodes=int(grid.num_nodes), max_nodes=q.max_nodes,
+        frames=list(NERF_FRAMES), image_hw=list(cfg.image_hw),
+        write_seconds=write_s, build_seconds=build_s, launches=launches)
+    return cfg, train_ds, test_ds, points, grid, params
+
+
+def phase_serve_nerf(cfg, test_ds, points, grid, params, prof=False):
+    """NERF_REQUESTS requests of NERF_RAYS_PER_REQUEST rays (test frame
+    0's middle rows) through serve.render_rays: per request one eval
+    chunk, one K-min at (4,096 * SR, Ps, K) and the chain forward in
+    chain_chunks pieces; the white background in every miss."""
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.device import device_batch
+    H, W = cfg.image_hw
+    full = test_ds.get_batch(0)
+    n = NERF_RAYS_PER_REQUEST
+    first = (H * W - NERF_REQUESTS * n) // 2
+    keys = ("campos", "camrotc2w", "bg_color")
+    requests = [device_batch(dict(
+        {k: full[k] for k in keys},
+        raydir=full["raydir"][first + i * n:first + (i + 1) * n]), DEVICE)
+        for i in range(NERF_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = [], []
+    reset_launches()
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(serve.render_rays(params, points, grid, req, cfg))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    chunks = NERF_REQUESTS * -(-n // cfg.sampling.eval_rays)
+    want = _predicted_launches(cfg, launches, renders=chunks)
+    if launches != want:
+        raise AssertionError(f"NeRF serving launched {launches}, want "
+                             f"{want}")
+    for i, out in enumerate(outs):
+        for k, v in out.items():
+            if v.shape[0] != n or (v.is_floating_point()
+                                   and not torch.isfinite(v).all()):
+                raise AssertionError(f"NeRF request {i}: {k} "
+                                     f"{tuple(v.shape)} or not finite")
+    hit = torch.cat([o["ray_mask"] for o in outs])
+    colour = torch.cat([o["coarse_raycolor"] for o in outs])
+    miss_white = bool((colour[~hit] == 1.0).all())
+    if not bool(hit.any()) or not bool((~hit).any()) or not miss_white:
+        raise AssertionError(f"NeRF requests: hit share "
+                             f"{float(hit.float().mean())}, misses white "
+                             f"{miss_white}")
+    if prof:
+        profile("serve_nerf", lambda: serve.render_rays(
+            params, points, grid, requests[1], cfg))
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    log("serve_nerf", request_ms=ms, rays=n, chunks=chunks,
+        launches=launches, ray_hit_share=float(hit.float().mean()),
+        misses_white=miss_white,
+        rays_per_s=NERF_REQUESTS * n / (sum(ms) / 1e3),
+        steady_rays_per_s=n / (steady / 1e3), max_memory_allocated=peak)
+    return launches
+
+
+def _nerf_steps(st, grid, batches, cfg, gen, warm=1):
+    """`warm` steps, then the rest of `batches` timed one by one; returns
+    (ms, launches and peak memory over the timed steps, last items)."""
+    import torch
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    for b in batches[:warm]:
+        st, _ = TT.train_step(st, grid, b, None, cfg, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    reset_launches()
+    for b in batches[warm:]:
+        t0 = time.perf_counter()
+        st, items = TT.train_step(st, grid, b, None, cfg, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, read_launches(), torch.cuda.max_memory_allocated(), \
+        {k: float(v) for k, v in items.items()}
+
+
+def phase_train_nerf(cfg, train_ds, points, grid, prof=False):
+    """nerf_train_config() steps on the object scene (3,600 random rays of
+    a train frame, SR = 80, the chain in 16 rematerialised chunks): 1
+    warm-up and TRAIN_STEPS timed steps, launches over exactly the timed
+    steps; then one timed step (after one warm-up) with remat off, with
+    chain_chunks 1 and with both, their times and peaks beside the
+    preset's; then one more step's segment sum and table Adam captured
+    and held against their plain versions (fused torch.optim.Adam timed
+    on the same table)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch.device import device_batch
+    from hybridneuralrendering_tpu_torch.models import neural_points as npts
+    from hybridneuralrendering_tpu_torch.models import renderer
+    from hybridneuralrendering_tpu_torch.ops import adam as A
+    from hybridneuralrendering_tpu_torch.train import state as TS
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    params = renderer.init_params(cfg, seed=1, device=DEVICE)
+    pts = dataclasses.replace(points, table=points.table.clone())
+    st = TS.create_train_state(params, pts, cfg, device=DEVICE)
+    rng = np.random.default_rng(0)
+    batches = [device_batch(train_ds.get_batch(i % len(train_ds), rng),
+                            DEVICE) for i in range(TRAIN_STEPS + 8)]
+    R = cfg.sampling.rays_per_batch
+    if batches[0]["raydir"].shape[0] != R or bool(
+            (batches[0]["bg_color"] != 1.0).any()):
+        raise AssertionError("a NeRF batch is not 3,600 rays on white")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    before = st.points.table.clone()
+    ms, launches, peak, items = _nerf_steps(st, grid,
+                                            batches[:TRAIN_STEPS + 1], cfg,
+                                            gen)
+    want = _predicted_launches(cfg, launches, [(False, 1)] * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"NeRF training launched {launches}, want "
+                             f"{want}")
+    if not all(math.isfinite(v) for v in items.values()):
+        raise AssertionError(f"NeRF loss items not finite: {items}")
+    moved = (st.points.table != before).any(dim=1)
+    if not bool(moved.any()) or not torch.equal(st.points.table[:, :3],
+                                                before[:, :3]):
+        raise AssertionError("the NeRF steps moved no point, or moved xyz")
+    knobs = {}
+    for label, kw in (("remat off", dict(remat_chain=False)),
+                      ("chain_chunks 1", dict(chain_chunks=1)),
+                      ("both off", dict(remat_chain=False, chain_chunks=1))):
+        vcfg = cfg.replace(agg=dataclasses.replace(cfg.agg, **kw))
+        v_ms, v_launches, v_peak, _ = _nerf_steps(
+            st, grid, batches[TRAIN_STEPS + 1:TRAIN_STEPS + 3], vcfg, gen)
+        want = _predicted_launches(vcfg, v_launches, [(False, 1)])
+        if v_launches != want:
+            raise AssertionError(f"NeRF step ({label}) launched "
+                                 f"{v_launches}, want {want}")
+        knobs[label] = dict(step_ms=v_ms[0], max_memory_allocated=v_peak,
+                            launches=v_launches)
+    # one more step: its segment sum and its table Adam captured and held
+    # against their plain versions at the workload's shapes
+    captured, adams = [], []
+    real, real_adam = npts.segment_sum, TT.adam_table
+    npts.segment_sum = lambda sg, e, n: (
+        captured.append((sg.clone(), e.clone(), n)) or real(sg, e, n))
+    TT.adam_table = lambda p, g, mu, nu, s: (adams.append(
+        (p.clone(), g.clone(), mu.clone(), nu.clone(), s))
+        or real_adam(p, g, mu, nu, s))
+    try:
+        TT.train_step(st, grid, batches[-1], None, cfg, generator=gen)
+    finally:
+        npts.segment_sum, TT.adam_table = real, real_adam
+    if [c[2] for c in captured] != [st.points.capacity] or len(adams) != 1:
+        raise AssertionError(f"a NeRF step's segment sums reduce onto "
+                             f"{[c[2] for c in captured]} rows, "
+                             f"{len(adams)} table Adams")
+    seg = segment_sum_row(*captured[0], "NeRF step: point table")
+    kern = [t.clone() for t in adams[0][:4]]
+    plain = [t.clone() for t in adams[0][:4]]
+    real_adam(kern[0], kern[1], kern[2], kern[3], adams[0][4])
+    A.adam_table_plain(plain[0], plain[1], plain[2], plain[3], adams[0][4])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("adam_table kernel != plain at the NeRF "
+                             "table")
+    N, C = kern[0].shape
+    bound, by = _bound(7 * N * C * 4, 15 * N * C)
+    o = cfg.optim
+    lib_p = adams[0][0].clone().requires_grad_(True)
+    lib_p.grad = adams[0][1].clone()
+    lib = torch.optim.Adam([lib_p], lr=o.plr, betas=(o.beta1, o.beta2),
+                           fused=True)
+    log_kernel("adam_table", dict(
+        shape=[N, C], table="NeRF step", tolerance="bitwise",
+        max_abs_err=0.0,
+        kernel_ms=cuda_ms(lambda: real_adam(kern[0], kern[1], kern[2],
+                                            kern[3], adams[0][4])),
+        plain_ms=cuda_ms(lambda: A.adam_table_plain(
+            plain[0], plain[1], plain[2], plain[3], adams[0][4])),
+        library_ms=cuda_ms(lib.step), bound_ms=bound, bound_by=by))
+    if prof:
+        profile("train_nerf", lambda: TT.train_step(
+            st, grid, batches[-2], None, cfg, generator=gen))
+    steady = sorted(ms)[len(ms) // 2]
+    log("train_nerf", step_ms=ms, median_step_ms=steady, min_step_ms=min(ms),
+        max_step_ms=max(ms), rays_per_step=R, rays_per_s=R / (steady / 1e3),
+        chain_rows_per_step=R * cfg.querier.SR * cfg.querier.K,
+        chain_chunks=cfg.agg.chain_chunks, remat_chain=cfg.agg.remat_chain,
+        max_memory_allocated=peak, launches=launches, loss_items_last=items,
+        rows_moved=int(moved.sum()), knobs=knobs,
+        step_segments={k: seg[k] for k in (
+            "shape", "rows_in_segments", "touched_ids", "max_segment",
+            "kernel_ms")})
+    return launches
+
+
+def _nerf_faults():
+    """The NeRF check's planted faults: the chain's ray chunks joined out
+    of order (the first chunk moved last); the chain's weight gradient of
+    the last chunk alone (the other chunks' chain_dw results dropped;
+    autograd runs the last chunk first); a black background on the white
+    scene (the batch's bg_color zeroed)."""
+    from hybridneuralrendering_tpu_torch.models import aggregator as AG
+    from hybridneuralrendering_tpu_torch.ops import shading_chain as SC
+    from hybridneuralrendering_tpu_torch.train import step as TT
+
+    def rotated(real):
+        return lambda outs: real(outs[1:] + outs[:1])
+
+    def last_chunk_dw(real):
+        calls = []
+
+        def backward_on_card(*a):
+            d_emb, d_dists, d_extra, packed = real(*a)
+            calls.append(1)
+            if len(calls) > 1:
+                packed = packed * 0.0
+            return d_emb, d_dists, d_extra, packed
+        return backward_on_card
+
+    def black_bg(real):
+        return lambda batch: dict(real(batch),
+                                  bg_color=batch["bg_color"] * 0.0)
+
+    return {"chunks out of order": (
+                _Planted(AG, "join_chunks", rotated), "item_rel_err"),
+            "last chunk's dW only": (
+                _Planted(SC, "backward_on_card", last_chunk_dw),
+                "net_grad_rel_l2"),
+            "black background": (
+                _Planted(TT, "device_batch", black_bg), "item_rel_err")}
+
+
+def phase_train_cli_nerf(root, cfg):
+    """cli.train.main --preset fixture_nerf_points --load-points 1 on the
+    object scene for NERF_CLI_STEPS steps (no probe, prune or eval in that
+    many steps; the final save), launches equal to the schedule's
+    (_predicted_launches: every step uncached, the bootstrap's grid); then
+    cli.test.main scores NERF_CLI_SCORED whole 400x400 test frames of the
+    saved state (per frame 40 eval chunks of 4,096 rays, the last 256;
+    the loaded points' grid)."""
+    import re
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch.cli import test as cli_test
+    from hybridneuralrendering_tpu_torch.cli import train as cli_train
+    ck = os.path.join(root, "nerf_ckpts")
+    argv = ["--preset", "fixture_nerf_points", "--data-root", root,
+            "--scan", NERF_SCAN, "--checkpoints-dir", ck, "--load-points",
+            "1", "--max-steps", str(NERF_CLI_STEPS), "--print-freq", "20",
+            "--seed", "0", "--device", DEVICE]
+    steps = []
+
+    def timed(real):
+        def train_step(*a, **kw):
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            steps.append((t, (time.perf_counter() - t) * 1e3))
+            return out
+        return train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _Planted(cli_train.step_mod, "train_step", timed):
+        st = cli_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bare = [ms for _, ms in steps]
+    # one step's start to the next's: the loop's wall a step
+    loop = [(b[0] - a[0]) * 1e3 for a, b in zip(steps, steps[1:])]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = _predicted_launches(cfg, launches,
+                               [(False, 1)] * NERF_CLI_STEPS, grids=1)
+    run_dir = os.path.join(ck, f"{NERF_SCAN}_points")
+    saved = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    if launches != want or st.step != NERF_CLI_STEPS or saved != [
+            f"{NERF_CLI_STEPS}_state.npz", "run_config.json"]:
+        raise AssertionError(f"the NeRF trainer: step {st.step}, saved "
+                             f"{saved}, launched {launches}, want {want}")
+    H, W = cfg.image_hw
+    chunks = -(-H * W // cfg.sampling.eval_rays)
+    reset_launches()
+    t0 = time.perf_counter()
+    scores = cli_test.main(argv[:8] + ["--num-frames", str(NERF_CLI_SCORED),
+                                       "--device", DEVICE])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    t_launches = read_launches()
+    t_want = _predicted_launches(cfg, t_launches,
+                                 renders=NERF_CLI_SCORED * chunks, grids=1)
+    with open(os.path.join(run_dir + "_test", "log.txt")) as f:
+        frames = [float(m.group(1)) for m in re.finditer(
+            r"frame \d+: PSNR \S+\s+render \S+ \((\d+) rays/s\)", f.read())]
+    if (t_launches != t_want or len(frames) != NERF_CLI_SCORED
+            or not all(np.isfinite(v) for v in scores.values())):
+        raise AssertionError(f"the NeRF eval: scores {scores}, frames "
+                             f"{frames}, launched {t_launches}, want "
+                             f"{t_want}")
+    log("train_cli_nerf", steps=NERF_CLI_STEPS, train_seconds=train_s,
+        step_ms=_stats(bare), loop_ms=_stats(loop),
+        outside_steps_seconds=train_s - sum(bare) / 1e3,
+        points=st.points.num_live,
+        checkpoint_bytes=os.path.getsize(os.path.join(
+            run_dir, "ckpt", saved[0])),
+        max_memory_allocated=peak, launches=launches, test_seconds=test_s,
+        scored_frames=NERF_CLI_SCORED, chunks_a_frame=chunks,
+        frame_rays_per_s=frames, scores=scores, test_launches=t_launches)
+    return {k: launches[k] + t_launches[k] for k in launches}
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
     """One more training step and one more cached step under
     torch.profiler, each with the blur bank and with the learnable kernel
@@ -2569,13 +3016,27 @@ def main(argv=None) -> int:
     train_cli_launches = phase_train_cli()
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank, staged, learnable)
+    del st, batch, bank, staged, learnable, points, grid, params, grid_c
+    with tempfile.TemporaryDirectory(prefix="nerf_") as root:
+        ncfg, n_train, n_test, n_points, n_grid, n_params = \
+            phase_nerf_scene(root)
+        phase_kernels_chain(ncfg, NERF_CHAIN_ROWS, "NeRF ")
+        nerf_launches = [
+            phase_serve_nerf(ncfg, n_test, n_points, n_grid, n_params,
+                             args.profile),
+            phase_train_nerf(ncfg, n_train, n_points, n_grid, args.profile)]
+        phase_train_check(ncfg, n_points, n_grid, cpu(n_grid), n_params,
+                          nerf_ds=n_train)
+        del n_points, n_grid, n_params
+        nerf_launches.append(phase_train_cli_nerf(root, ncfg))
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
     launches = {k: serve_launches[k] + pervoxel_launches[k]
                 + train_launches[k] + cached_launches[k]
                 + learnable_launches[k] + eval_launches[k]
-                + train_cli_launches[k] for k in serve_launches}
+                + train_cli_launches[k] + sum(n[k] for n in nerf_launches)
+                for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 
     def row(name, replaces, m):

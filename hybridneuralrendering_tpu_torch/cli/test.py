@@ -2,7 +2,8 @@
 run/test_ft.py).
 
 Loads a scene's newest checkpoint, builds its query grid, renders every
-pixel of the test split's frames, writes the frames as PNGs, logs each
+pixel of the test split's frames (a ScanNet scene, or a Blender-layout one
+under the NeRF presets), writes the frames as PNGs, logs each
 frame's PSNR and rays/s, and writes the mean PSNR / SSIM / RMSE (+ LPIPS
 where the `lpips` package is installed) to `scores.txt`, as the JAX CLI
 does.  Runs on the card unless `--device cpu` is given:
@@ -27,6 +28,7 @@ import torch
 
 from hybridneuralrendering_tpu_torch import config as C
 from hybridneuralrendering_tpu_torch import serve
+from hybridneuralrendering_tpu_torch.data.nerf_synth import NerfSynthScene
 from hybridneuralrendering_tpu_torch.data.scannet import ScannetScene
 from hybridneuralrendering_tpu_torch.device import resolve
 from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
@@ -60,6 +62,15 @@ def build_argparser():
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: the card)")
     return p
+
+
+def scene_class(preset: str):
+    """The dataset class of a preset: the Blender layout for the NeRF
+    presets (names starting nerf or fixture_nerf), else ScanNet's, as the
+    JAX CLIs choose."""
+    if preset.startswith(("nerf", "fixture_nerf")):
+        return NerfSynthScene
+    return ScannetScene
 
 
 def preset_config(args) -> C.Config:
@@ -118,7 +129,8 @@ def main(argv=None) -> Dict[str, float]:
             f"capacity={cfg.points.num_points}"
             + ("  (from run_config.json)" if snap else ""))
 
-    test_ds = ScannetScene(args.data_root, args.scan, cfg, "test")
+    test_ds = scene_class(args.preset)(args.data_root, args.scan, cfg,
+                                       "test")
     latest = ckpt_mod.latest_checkpoint(ckpt_dir)
     if latest is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")

@@ -27,6 +27,13 @@ to numpy sampling.  With another sampler the flag is ignored, as in JAX,
 and a log line says so.  `--blur-mode learnable` and `scannet_learnable`
 train the learnable blur kernel's MLP with the other parameters.
 
+The NeRF presets (nerf_*, fixture_nerf_*) read a Blender-layout scene
+(data/nerf_synth) and bootstrap from its fused.ply (--load-points 1).  As
+in the JAX CLI, such a scene has no sensor depth, so --load-points 2 fails
+with AttributeError at the bootstrap, and --native-prefetch with a dilated
+NeRF preset fails with AttributeError at the first step (the native path
+reads ScanNet poses).
+
 Not ported yet, and refused with NotImplementedError before any work:
 --train-mode ff and --load-points 0 (MVS bootstrap, ROADMAP Queue 1 item
 14).
@@ -46,11 +53,11 @@ import torch
 
 from hybridneuralrendering_tpu_torch import config as C
 from hybridneuralrendering_tpu_torch import serve
-from hybridneuralrendering_tpu_torch.cli.test import preset_config
+from hybridneuralrendering_tpu_torch.cli.test import (preset_config,
+                                                     scene_class)
 from hybridneuralrendering_tpu_torch.data import native_sampler
 from hybridneuralrendering_tpu_torch.data.point_init import (
     voxel_downsample_closest)
-from hybridneuralrendering_tpu_torch.data.scannet import ScannetScene
 from hybridneuralrendering_tpu_torch.device import device_batch, resolve
 from hybridneuralrendering_tpu_torch.models import blur as blur_mod
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
@@ -177,7 +184,7 @@ def configure(args) -> C.Config:
     return cfg
 
 
-def bootstrap_points(args, dataset: ScannetScene, cfg: C.Config
+def bootstrap_points(args, dataset, cfg: C.Config
                      ) -> np.ndarray:
     """The initial cloud xyz [M, 3] (run/train_ft.py:679-778): the PLY mesh
     (mode 1) or every frame's sensor depth (mode 2), voxel-downsampled at
@@ -219,7 +226,7 @@ def step_noise(generator: torch.Generator, step: int, frames: int,
                       device=device)
 
 
-def evaluate(params, points, grid, test_ds: ScannetScene, cfg: C.Config,
+def evaluate(params, points, grid, test_ds, cfg: C.Config,
              vis: Visualizer, step: int, num_frames: int, device) -> float:
     """Render `num_frames` test frames spread over the split whole
     (serve.render_full_frame), save them as PNGs and log their mean PSNR
@@ -261,8 +268,9 @@ def main(argv=None) -> state_mod.TrainState:
             "seed": args.seed,
         }, f, indent=1)
 
-    train_ds = ScannetScene(args.data_root, args.scan, cfg, "train")
-    test_ds = ScannetScene(args.data_root, args.scan, cfg, "test")
+    scene = scene_class(args.preset)
+    train_ds = scene(args.data_root, args.scan, cfg, "train")
+    test_ds = scene(args.data_root, args.scan, cfg, "test")
     rng = np.random.default_rng(args.seed)
 
     vis.log(f"bootstrapping points (mode {args.load_points})...")

@@ -7,13 +7,13 @@ render, blur, sampling, loss, optim, probe), with the same fields and
 defaults, so that a preset here equals the JAX preset of the same name field
 by field (tests/test_torch_port_config.py checks it).  The parallel
 sub-config comes with the slice that uses it.  PRESETS carries
-the JAX package's names; the presets whose knobs the port does not run yet
-(the NeRF-synthetic workloads) raise NotImplementedError naming the ROADMAP
-item that ports them.
+the JAX package's names.
 
 `serve_config()` is the serving workload and `train_config()` the training
 workload: `scannet_full` at the shapes of the JAX package's benchmark scene
 (600k synthetic points in a +-3.2 m box, 480x640 images).
+`nerf_train_config()` is the NeRF-synthetic training workload
+(`fixture_nerf_points`, the JAX bench's second field, on 400k points).
 """
 
 from __future__ import annotations
@@ -81,9 +81,10 @@ class AggregatorConfig:
     unique-row gather (dedup_gather, dedup_uncached, renderer.render) and
     the cached maps' reading (staged_materialize, fusion.image_fusion).
     The learnable blur kernel's knobs are read by
-    models/blur.learnable_blur_update.  The knobs of unported variants
-    (remat, chunks, fused VJP) are carried so that presets compare field by
-    field, and raise where they are read (aggregator._check_supported)."""
+    models/blur.learnable_blur_update; the chain's dtype, chunk, remat
+    and fused-VJP knobs by aggregator._shading_chain.  The knobs of
+    unported variants are carried so that presets compare field by field,
+    and raise where they are read (aggregator._check_supported)."""
 
     which_agg_model: str = "viewmlp"
     agg_distance_kernel: str = "linear"
@@ -436,15 +437,80 @@ def fixture_room(scan: str = "roomsim") -> Config:
     )
 
 
-def _unported(name: str, item: str):
-    def preset(*args, **kw) -> Config:
-        raise NotImplementedError(
-            f"preset {name} is not ported yet (ROADMAP Queue 1 {item})")
-    preset.__name__ = name
-    return preset
+def nerf_synth_points(scene: str = "lego") -> Config:
+    """NeRF-synthetic point-only rendering (w_n360/lego_points.sh): SR=80,
+    60x60 random rays, no image fusion, no blur; the chain runs in 16
+    rematerialised chunks."""
+    return Config(
+        name=f"{scene}_points",
+        querier=QuerierConfig(
+            vsize=(0.004, 0.004, 0.004), vscale=(2, 2, 2), SR=80, K=8, P=12,
+            max_o=410_000, z_depth_dim=400,
+            ranges=(-0.721, -0.695, -0.995, 0.658, 0.706, 1.50),
+            grid_capacity=24_000_000),
+        points=PointsConfig(num_points=500_000),
+        agg=AggregatorConfig(use_nearest=0, drop_ratio=0.0,
+                             remat_chain=True, chain_chunks=16),
+        render=RenderConfig(near_plane=2.0, far_plane=6.0),
+        sampling=SamplingConfig(random_sample="random", random_sample_size=60,
+                                eval_chunk_rays=4096),
+        blur=BlurConfig(add_blur_sim=False),
+        image_hw=(800, 800),
+    )
 
 
-NERF_ITEM = "items 8 and 11, remat and chunked chains for the NeRF workload"
+def nerf_synth_hybrid(scene: str = "chair") -> Config:
+    """NeRF-synthetic with 4-view image fusion (w_n360/chair_hybrid.sh)."""
+    cfg = nerf_synth_points(scene)
+    return cfg.replace(
+        name=f"{scene}_hybrid",
+        agg=AggregatorConfig(use_nearest=4, drop_ratio=0.5,
+                             remat_chain=True, chain_chunks=16),
+        sampling=SamplingConfig(random_sample="dilated", random_sample_size=56,
+                                eval_chunk_rays=4096),
+    )
+
+
+def fixture_nerf_points(scan: str = "objsim") -> Config:
+    """nerf_synth_points fitted to the analytic object scene of
+    tools/make_fixture_scene.py --layout blender (data/synthetic.
+    write_blender_scene writes one like it): the workload's shapes, the
+    scene's ranges, capacities and 400x400 frames."""
+    base = nerf_synth_points(scan)
+    return base.replace(
+        name=f"{scan}_points",
+        querier=dataclasses.replace(
+            base.querier, ranges=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+            grid_capacity=20_000_000, max_o=410_000, max_nodes=1_200_000),
+        image_hw=(400, 400),
+    )
+
+
+def fixture_nerf_hybrid(scan: str = "objsim") -> Config:
+    """nerf_synth_hybrid (SR=80, dilated rays, 4-view fusion) on the object
+    scene."""
+    base = fixture_nerf_points(scan)
+    return base.replace(
+        name=f"{scan}_hybrid",
+        agg=AggregatorConfig(use_nearest=4, drop_ratio=0.5,
+                             remat_chain=True, chain_chunks=16),
+        sampling=SamplingConfig(random_sample="dilated", random_sample_size=56,
+                                eval_chunk_rays=4096),
+    )
+
+
+# the NeRF workload's synthetic scene size (the JAX package's bench.py:34,
+# NUM_POINTS_NERF)
+NERF_NUM_POINTS = 400_000
+
+
+def nerf_train_config() -> Config:
+    """The NeRF training workload: fixture_nerf_points as it stands, equal
+    field by field to the JAX bench.py:bench_config_nerf with its
+    environment knobs unset (R = 3,600 random rays, SR = 80, K = 8, white
+    background, no fusion, no blur, the chain in 16 rematerialised
+    chunks)."""
+    return fixture_nerf_points()
 
 
 def apply_blur_overrides(cfg: Config, blur_mode: str = "preset",
@@ -483,10 +549,10 @@ PRESETS = {
     "scannet_scene101": scannet_scene101,
     "scannet_livingroom": scannet_livingroom,
     "scannet_vangoroom": scannet_vangoroom,
-    "nerf_synth_points": _unported("nerf_synth_points", NERF_ITEM),
-    "nerf_synth_hybrid": _unported("nerf_synth_hybrid", NERF_ITEM),
-    "fixture_nerf_points": _unported("fixture_nerf_points", NERF_ITEM),
-    "fixture_nerf_hybrid": _unported("fixture_nerf_hybrid", NERF_ITEM),
+    "nerf_synth_points": nerf_synth_points,
+    "nerf_synth_hybrid": nerf_synth_hybrid,
+    "fixture_nerf_points": fixture_nerf_points,
+    "fixture_nerf_hybrid": fixture_nerf_hybrid,
     "fixture_room": fixture_room,
     "tiny": tiny_test,
     "serve": serve_config,

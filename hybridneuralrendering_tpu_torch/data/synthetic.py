@@ -7,11 +7,13 @@ Everything is drawn from one numpy generator in the JAX package's order, so
 a seed gives both packages the same points, attributes and rays; only the
 point embeddings differ (the JAX package draws them with jax.random).
 `write_scannet_scene` writes frames of that camera in the ScanNet layout
-that data/scannet.py reads.
+that data/scannet.py reads; `write_blender_scene` an object scene in the
+Blender layout that data/nerf_synth.py reads.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, Optional, Tuple
 
@@ -151,3 +153,113 @@ def write_scannet_scene(root: str, cfg: Config, scan: str = "synth",
                   rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
         png.write(os.path.join(base, "depth", f"{i}.png"), depth)
     return os.path.join(root, scan)
+
+
+# write_blender_scene's object: a sphere on a box, inside +-1 m, orbited at
+# BLENDER_RADIUS by cameras of lego's camera_angle_x (the camera convention
+# of tools/make_fixture_scene.py --layout blender)
+SPHERE_C, SPHERE_R = np.array([0.0, 0.0, 0.25]), 0.45
+BOX_LO, BOX_HI = np.array([-0.55, -0.55, -0.6]), np.array([0.55, 0.55, -0.25])
+BLENDER_RADIUS = 4.0
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618
+
+
+def _object_hit(campos: np.ndarray, dirs: np.ndarray):
+    """(hit distance, inf on a miss; surface normal) of rays from `campos`
+    along unit `dirs` [..., 3] against the sphere and the box."""
+    oc = campos - SPHERE_C
+    b = dirs @ oc
+    disc = b * b - (oc @ oc - SPHERE_R ** 2)
+    ts = -b - np.sqrt(np.maximum(disc, 0.0))
+    ts = np.where((disc > 0) & (ts > 1e-3), ts, np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0, t1 = (BOX_LO - campos) / dirs, (BOX_HI - campos) / dirs
+    tmin = np.max(np.minimum(t0, t1), axis=-1)
+    tmax = np.min(np.maximum(t0, t1), axis=-1)
+    tb = np.where(tmax >= np.maximum(tmin, 1e-3), tmin, np.inf)
+    t = np.minimum(ts, tb)
+    p = campos + dirs * np.where(np.isfinite(t), t, 0.0)[..., None]
+    rel = (p - (BOX_LO + BOX_HI) / 2) / ((BOX_HI - BOX_LO) / 2)
+    ax = np.argmax(np.abs(rel), axis=-1)
+    n_box = np.eye(3)[ax] * np.sign(np.take_along_axis(rel, ax[..., None],
+                                                       -1))
+    normal = np.where((ts < tb)[..., None], (p - SPHERE_C) / SPHERE_R, n_box)
+    return t, p, normal
+
+
+def _object_rgba(c2w: np.ndarray, intr: np.ndarray, H: int,
+                 W: int) -> np.ndarray:
+    """[H, W, 4] uint8 render of the object from OpenCV-convention `c2w`:
+    a smooth positional texture under one light, alpha 1 on the object and
+    0 (white) elsewhere."""
+    ys, xs = np.mgrid[0:H, 0:W]
+    pix = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)], -1).astype(
+        np.float64)
+    dirs = (pix @ np.linalg.inv(intr).T) @ c2w[:3, :3].T
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    t, p, normal = _object_hit(c2w[:3, 3], dirs)
+    hit = np.isfinite(t)
+    base = 0.5 + 0.45 * np.stack([
+        np.sin(6.0 * p[..., 0]) * np.cos(4.0 * p[..., 1]),
+        np.sin(5.0 * p[..., 1] + 1.0) * np.cos(3.0 * p[..., 2]),
+        np.sin(4.0 * p[..., 2] + 2.0) * np.cos(5.0 * p[..., 0])], -1)
+    lam = 0.55 + 0.45 * np.clip(normal @ np.array([0.4, 0.3, 0.85]), 0, 1)
+    rgb = np.where(hit[..., None], np.clip(base * lam[..., None], 0, 1), 1.0)
+    rgba = np.concatenate([rgb, hit[..., None].astype(np.float64)], -1)
+    return (rgba * 255).astype(np.uint8)
+
+
+def object_surface(n: int, rng: np.random.Generator) -> np.ndarray:
+    """[n, 3] float32 points on the object's surface: half on the sphere,
+    half on the box's faces."""
+    ns = n // 2
+    v = rng.normal(size=(ns, 3))
+    sph = SPHERE_C + SPHERE_R * v / np.linalg.norm(v, axis=-1,
+                                                   keepdims=True)
+    face = rng.integers(0, 6, n - ns)
+    box = BOX_LO + rng.uniform(0, 1, (n - ns, 3)) * (BOX_HI - BOX_LO)
+    axis = face // 2
+    box[np.arange(n - ns), axis] = np.where(face % 2, BOX_HI[axis],
+                                            BOX_LO[axis])
+    return np.concatenate([sph, box]).astype(np.float32)
+
+
+def write_blender_scene(root: str, scan: str = "objsim", n_train: int = 20,
+                        n_test: int = 4, hw: Tuple[int, int] = (400, 400),
+                        num_points: int = 60_000, seed: int = 0) -> str:
+    """An object scene in the Blender layout that data/nerf_synth reads
+    (`root/scan/{train,test}/r_i.png`, `transforms_{train,test}.json`,
+    `fused.ply`): RGBA frames of the sphere-on-box object at `hw` from
+    cameras orbiting at BLENDER_RADIUS (pose_spherical; the test views
+    between the train views), and `num_points` surface points as a binary
+    PLY.  Returns the scene's directory."""
+    from hybridneuralrendering_tpu_torch.data.nerf_synth import (
+        BLENDER2OPENCV, pose_spherical)
+    H, W = hw
+    scene = os.path.join(root, scan)
+    focal = 0.5 * W / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
+    intr = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+    for split, n in (("train", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(scene, split), exist_ok=True)
+        off = 0.5 if split == "test" else 0.0
+        frames = []
+        for i in range(n):
+            theta = -180 + 360.0 * (i + off) / n
+            phi = -30.0 + 12.0 * np.sin(2.1 * i + 2 * off)
+            c2w_b = pose_spherical(theta, phi, BLENDER_RADIUS).astype(
+                np.float64)
+            png.write(os.path.join(scene, split, f"r_{i}.png"),
+                      _object_rgba(c2w_b @ BLENDER2OPENCV, intr, H, W))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w_b.tolist()})
+        with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
+                       "frames": frames}, f)
+    xyz = object_surface(num_points, np.random.default_rng(seed))
+    with open(os.path.join(scene, "fused.ply"), "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(xyz)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 "end_header\n").encode())
+        f.write(np.ascontiguousarray(xyz, "<f4").tobytes())
+    return scene

@@ -1,15 +1,21 @@
-"""The viewmlp point aggregator with hybrid image-feature fusion, eval path
+"""The viewmlp point aggregator with hybrid image-feature fusion
 (JAX: hybridneuralrendering_tpu/models/aggregator.py).
 
 Every MLP runs over the full [R, SR, K] neighbour block with `pnt_mask`
 zeroing the empty slots.  The per-neighbour chain runs as the fused chain
-of ops/shading_chain (the port of tools/pallas_shading.py's kernel): under
-shading_dtype=bfloat16 the operands of its products are bf16 and its sums,
-bias and activations f32, where the JAX package's shipped chain is bf16
-end to end; the K-sum accumulates in float32.  In training (`train=True`)
-the rays of drop_ray_mask lose their image feature; the rematerialised
-chain, the chunked chain and the fused leaky VJP are not ported and
-raise.
+of ops/shading_chain (the port of tools/pallas_shading.py's kernel) in
+shading_chain.chain_dtype(cfg): in bf16 the operands of its products are
+bf16 and its sums, bias and activations f32, where the JAX package's
+shipped shading_dtype chain is bf16 end to end; the K-sum accumulates in
+float32.  `chain_chunks` runs the chain and its K-sum over that many ray
+chunks one after another (when they divide R, as JAX's lax.scan), and
+`remat_chain` wraps each chunk in torch.utils.checkpoint, so that the
+backward recomputes it and no [rows, F] feature is kept between the
+passes (jax.checkpoint with nothing_saveable).  `compute_dtype` rounds
+the colour branch's, fusion's and mixup's products.  In training
+(`train=True`) the rays of drop_ray_mask lose their image feature, and
+with `separate_color_decoder` take their colour from color_final_2 on the
+point feature alone.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from hybridneuralrendering_tpu_torch.config import AggregatorConfig
 from hybridneuralrendering_tpu_torch.core.cameras import pers_delta
@@ -83,24 +90,18 @@ def viewdir_channels(cfg: AggregatorConfig) -> int:
     return 2 * cfg.num_viewdir_freqs * 3 if cfg.num_viewdir_freqs > 0 else 3
 
 
-def _check_supported(cfg: AggregatorConfig, train: bool = False) -> None:
-    """Raise for knobs the port does not implement.  The remat, chunk and
-    fused-VJP knobs change only the backward pass (and peak memory), so
-    they raise in training and are ignored by the eval forward."""
+def _check_supported(cfg: AggregatorConfig) -> None:
+    """Raise for knobs the port does not implement (ROADMAP Queue 1 item
+    10, and a chain the fused kernels do not take)."""
     unported = {
         "agg_distance_kernel in (sh_intrp, gau_intrp)":
             cfg.agg_distance_kernel in ("sh_intrp", "gau_intrp"),
         "tradition_attention": cfg.tradition_attention,
-        "compute_dtype != float32": cfg.compute_dtype != "float32",
-        "separate_color_decoder": cfg.separate_color_decoder,
         "a chain without block3 or an alpha head "
         "(shading_feature_mlp_layer3 == 0)":
             cfg.shading_feature_mlp_layer3 == 0,
         "act_type != leaky_relu in the shading chain":
             cfg.act_type != "leaky_relu",
-        "remat_chain in training": train and cfg.remat_chain,
-        "chain_chunks > 1 in training": train and cfg.chain_chunks > 1,
-        "fused_leaky_vjp in training": train and cfg.fused_leaky_vjp,
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -159,6 +160,8 @@ def init(gen: torch.Generator, cfg: AggregatorConfig,
     params["color_final"] = stack(
         [final_in, final_in, 3] if cfg.large_color_final_block
         else [final_in, 3])
+    if cfg.separate_color_decoder:
+        params["color_final_2"] = stack([final_in, 3])
     if cfg.learnable_blur_kernel:
         # the blur-kernel MLP (models/blur.learnable_blur_update): grey GT
         # and render patches in, K*K kernel weights (+ the identity's mix
@@ -229,19 +232,43 @@ def _shading_chain(p: Dict, cfg: AggregatorConfig, emb, dflat, extras,
     (density [R, SR, 1], aggregated feature [R, SR, F]).  The chain itself
     (positional encodings, block1 [+ block2], block3, alpha head) is
     ops/shading_chain.fused_feat_alpha: the hand-written kernels on the
-    card, their plain versions on the CPU."""
-    lead = emb.shape[:-1]
-    n = int(np.prod(lead))
+    card, their plain versions on the CPU.  On the card the weights are
+    packed once for every chunk and recompute."""
     extra = (torch.cat(extras, dim=-1) if extras
-             else emb.new_zeros(lead + (0,)))
-    ft, a_raw = shading_chain.fused_feat_alpha(
-        p, cfg, emb.reshape(n, -1), dflat.reshape(n, -1),
-        extra.reshape(n, -1))
-    ft = ft.reshape(lead + (-1,))
-    a_raw = a_raw.reshape(lead)
-    return (torch.sum(raw2density(a_raw, cfg.act_super) * mask_w,
-                      dim=-1)[..., None],
-            torch.sum(ft * mask_w[..., None], dim=-2))
+             else emb.new_zeros(emb.shape[:-1] + (0,)))
+    packed = None
+    if emb.is_cuda:
+        packed = shading_chain.pack_for(p, cfg, emb.shape[-1],
+                                        dflat.shape[-1], extra.shape[-1])
+
+    def chain_fn(emb_c, dflat_c, extra_c, mw_c):
+        lead = emb_c.shape[:-1]
+        n = int(np.prod(lead))
+        ft, a_raw = shading_chain.fused_feat_alpha(
+            p, cfg, emb_c.reshape(n, -1), dflat_c.reshape(n, -1),
+            extra_c.reshape(n, -1), packed)
+        ft = ft.reshape(lead + (-1,))
+        a_raw = a_raw.reshape(lead)
+        return (torch.sum(raw2density(a_raw, cfg.act_super) * mw_c,
+                          dim=-1)[..., None],
+                torch.sum(ft * mw_c[..., None], dim=-2))
+
+    def run(*xs):
+        if cfg.remat_chain and torch.is_grad_enabled():
+            return checkpoint(chain_fn, *xs, use_reentrant=False)
+        return chain_fn(*xs)
+
+    xs = (emb, dflat, extra, mask_w)
+    nc, R = cfg.chain_chunks, emb.shape[0]
+    if nc <= 1 or R % nc:
+        return run(*xs)
+    return join_chunks([run(*c) for c in zip(*(torch.chunk(x, nc)
+                                                for x in xs))])
+
+
+def join_chunks(outs):
+    """The ray chunks' (density, feature) pairs joined in ray order."""
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def apply(params: Dict, cfg: AggregatorConfig, *,
@@ -262,7 +289,8 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
     img_feat_staged = (images, (s1, s2, s3)) their cached stage maps
     (fusion.image_fusion); sample_loc_i_n [V, R, SR, 2] reprojected pixel positions; drop_mask [R]
     bool, rays whose image features are dropped (read only when `train`)."""
-    _check_supported(cfg, train)
+    _check_supported(cfg)
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     f32 = sampled_xyz.dtype
     ray_valid = pnt_mask.any(dim=-1)
     dists = build_dists(cfg, sampled_xyz, sampled_xyz_pers, sample_loc,
@@ -308,7 +336,8 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
     vd = torch.zeros_like(vdirs_enc) if cfg.disable_viewdirs else vdirs_enc
     color_feature = mlp.mlp_apply(params["color_feature"],
                                   torch.cat([feat_agg, vd], dim=-1),
-                                  cfg.act_type, final_act=True)
+                                  cfg.act_type, final_act=True,
+                                  compute_dtype=cdt)
     if cfg.disable_color_feature:
         color_feature = color_feature * 0.0
 
@@ -317,10 +346,25 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
                                      sample_loc_i_n, delta_viewdir_n,
                                      frame_weight_n, view_mask,
                                      drop_mask if train else None,
-                                     img_feat_staged)
-    color_feature_mix = fusion.mixup(params, cfg, color_feature, merged)
-    rgb = raw2color(mlp.mlp_apply(params["color_final"], color_feature_mix,
-                                  cfg.act_type), cfg.act_super)
+                                     img_feat_staged, compute_dtype=cdt)
+    color_feature_mix = fusion.mixup(params, cfg, color_feature, merged,
+                                     compute_dtype=cdt)
+    if cfg.separate_color_decoder and train and drop_mask is not None:
+        # the dropped rays' colour from the point feature alone, through
+        # the second decoder (JAX aggregator.py:481-491; both heads
+        # float32 there)
+        rgb_mix = raw2color(mlp.mlp_apply(params["color_final"],
+                                          color_feature_mix, cfg.act_type),
+                            cfg.act_super)
+        rgb_pnt = raw2color(mlp.mlp_apply(params["color_final_2"],
+                                          color_feature, cfg.act_type),
+                            cfg.act_super)
+        dm = drop_mask[:, None, None].to(f32)
+        rgb = rgb_pnt * dm + rgb_mix * (1 - dm)
+    else:
+        rgb = raw2color(mlp.mlp_apply(params["color_final"],
+                                      color_feature_mix, cfg.act_type,
+                                      compute_dtype=cdt), cfg.act_super)
     out = torch.cat([alpha, rgb], dim=-1) * ray_valid[..., None].to(f32)
     return AggOutput(features=out, ray_valid=ray_valid, weight=weight,
                      conf_coefficient=conf_coefficient)

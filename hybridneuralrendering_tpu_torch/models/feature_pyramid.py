@@ -31,29 +31,36 @@ def init(gen: torch.Generator, act: str = "leaky_relu", in_ch: int = 3,
 
 
 def apply_stages(params: Dict, images: torch.Tensor, act: str = "leaky_relu",
-                 chain_dtype: Optional[torch.dtype] = None):
+                 chain_dtype: Optional[torch.dtype] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
     """images [V, H, W, 3] -> stage maps (s1 [V,H/2,W/2,6],
     s2 [V,H/4,W/4,12], s3 [V,H/8,W/8,24]).  With `chain_dtype` the params
-    and images are cast once and every map stays in that dtype."""
+    and images are cast once and every map stays in that dtype; otherwise
+    `compute_dtype` rounds each conv (mlp.conv2d_apply) and the maps stay
+    float32, as in JAX feature_pyramid.apply_stages."""
     f = mlp.activation(act)
+    cdt = compute_dtype
     if chain_dtype is not None:
         params = {k: {n: t.to(chain_dtype) for n, t in p.items()}
                   for k, p in params.items()}
         images = images.to(chain_dtype)
-    s1 = f(mlp.conv2d_apply(params["s1a"], images, stride=2))
-    s1 = f(mlp.conv2d_apply(params["s1b"], s1))
-    s2 = f(mlp.conv2d_apply(params["s2a"], s1, stride=2))
-    s2 = f(mlp.conv2d_apply(params["s2b"], s2))
-    s3 = f(mlp.conv2d_apply(params["s3a"], s2, stride=2))
-    s3 = f(mlp.conv2d_apply(params["s3b"], s3))
+        cdt = None
+    s1 = f(mlp.conv2d_apply(params["s1a"], images, 2, cdt))
+    s1 = f(mlp.conv2d_apply(params["s1b"], s1, 1, cdt))
+    s2 = f(mlp.conv2d_apply(params["s2a"], s1, 2, cdt))
+    s2 = f(mlp.conv2d_apply(params["s2b"], s2, 1, cdt))
+    s3 = f(mlp.conv2d_apply(params["s3a"], s2, 2, cdt))
+    s3 = f(mlp.conv2d_apply(params["s3b"], s3, 1, cdt))
     return s1, s2, s3
 
 
 def apply(params: Dict, images: torch.Tensor, act: str = "leaky_relu",
-          chain_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          chain_dtype: Optional[torch.dtype] = None,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """images [V, H, W, 3] -> [V, H, W, 45] (in chain_dtype when given)."""
     V, H, W, _ = images.shape
-    s1, s2, s3 = apply_stages(params, images, act, chain_dtype)
+    s1, s2, s3 = apply_stages(params, images, act, chain_dtype,
+                              compute_dtype)
     img = images if chain_dtype is None else images.to(chain_dtype)
     return torch.cat([img, mlp.bilinear_resize(s1, H, W),
                       mlp.bilinear_resize(s2, H, W),

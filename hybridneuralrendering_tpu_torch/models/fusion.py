@@ -28,7 +28,9 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
                  frame_weight_n: Optional[torch.Tensor] = None,
                  view_mask: Optional[torch.Tensor] = None,
                  drop_mask: Optional[torch.Tensor] = None,
-                 img_feat_staged: Optional[Tuple] = None) -> torch.Tensor:
+                 img_feat_staged: Optional[Tuple] = None,
+                 compute_dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
     """Merged per-sample image feature [R, SR, aux_c], zeros when the image
     branch is off.  img_feat_n [V, H, W, C]; sample_loc_i_n [V, R, SR, 2]
     pixel positions; delta_viewdir_n [V, R, SR, 3]; drop_mask [R] bool,
@@ -38,7 +40,9 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
     maps (JAX fusion.py:36-60): with cfg.staged_materialize they are
     upsampled to a full map (feature_pyramid.materialize) and read by the
     flat row gather, otherwise sampled per sample (gather_staged).  A
-    cached map carries no gradient, so its gather records no backward."""
+    cached map carries no gradient, so its gather records no backward.
+    `compute_dtype` rounds the fusion-weight MLP's hidden products (its
+    head stays float32, as in JAX fusion.py:137-142)."""
     f32 = color_feature.dtype
     aux_c = cfg.aux_feature_channels
     has_img = img_feat_n is not None or img_feat_staged is not None
@@ -82,7 +86,8 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
     if cfg.use_delta_view:
         parts.append(delta_viewdir_n)
     layers = params["fusion_weight"]
-    h = mlp.mlp_apply_split(layers[:-1], parts, cfg.act_type, final_act=True)
+    h = mlp.mlp_apply_split(layers[:-1], parts, cfg.act_type, final_act=True,
+                            compute_dtype=compute_dtype)
     head = layers[-1]
     fusion_w = torch.sigmoid(h @ head["w"][:, 0] + head["b"][0])
     fusion_w = fusion_w * valid.to(f32)                          # [V, R, SR]
@@ -96,8 +101,11 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
 
 
 def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,
-          merged: torch.Tensor) -> torch.Tensor:
-    """Mix the 3D colour feature with the merged image feature."""
+          merged: torch.Tensor,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Mix the 3D colour feature with the merged image feature;
+    `compute_dtype` rounds the mixup MLP's products (not the
+    dynamic-weight head's, as in JAX)."""
     aux_c = cfg.aux_feature_channels
     if cfg.mixup_mode == "partial":
         intrinsic = color_feature[..., :aux_c]
@@ -109,7 +117,8 @@ def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,
             mixed = (1 - bw) * intrinsic + bw * merged
         else:
             mixed = mlp.mlp_apply(params["mixup"], mix_in, cfg.act_type,
-                                  final_act=not cfg.learn_residuals)
+                                  final_act=not cfg.learn_residuals,
+                                  compute_dtype=compute_dtype)
         if cfg.learn_residuals:
             mixed = mixed + intrinsic
         return torch.cat([mixed, view_part], dim=-1)
@@ -119,7 +128,8 @@ def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,
                                          cfg.act_type))
         return (1 - bw) * color_feature + bw * merged
     out = mlp.mlp_apply(params["mixup"], mix_in, cfg.act_type,
-                        final_act=not cfg.learn_residuals)
+                        final_act=not cfg.learn_residuals,
+                        compute_dtype=compute_dtype)
     if cfg.learn_residuals:
         out = out + color_feature
     return out

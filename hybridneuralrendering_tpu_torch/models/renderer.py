@@ -11,7 +11,7 @@ background colour.  Each stage runs inside a torch.profiler range named
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -34,28 +34,36 @@ def init_params(cfg: Config, seed: int = 0, device="cuda") -> Dict:
     return {"aggregator": agg.init(gen, cfg.agg, device=resolve(device))}
 
 
-def _chain_dtype(cfg: Config) -> Optional[torch.dtype]:
-    return torch.bfloat16 if cfg.agg.pyramid_dtype == "bfloat16" else None
+def _pyramid_dtypes(cfg: Config
+                    ) -> Tuple[Optional[torch.dtype], Optional[torch.dtype]]:
+    """(compute dtype, chain dtype) of the pyramid CNN, as JAX
+    renderer._pyramid_dtypes: bf16 where compute_dtype / pyramid_dtype
+    say so, else None (float32)."""
+    bf = torch.bfloat16
+    return (bf if cfg.agg.compute_dtype == "bfloat16" else None,
+            bf if cfg.agg.pyramid_dtype == "bfloat16" else None)
 
 
 def compute_image_features(params: Dict, cfg: Config,
                            images_nearest: torch.Tensor) -> torch.Tensor:
     """[V, H, W, 3] -> [V, H, W, 45] pyramid features of the nearest views
     (in pyramid_dtype)."""
+    cdt, chain = _pyramid_dtypes(cfg)
     with record_function("render.pyramid"):
         return feature_pyramid.apply(params["aggregator"]["pyramid"],
                                      images_nearest, cfg.agg.act_type,
-                                     chain_dtype=_chain_dtype(cfg))
+                                     chain_dtype=chain, compute_dtype=cdt)
 
 
 def compute_image_feature_stages(params: Dict, cfg: Config,
                                  images_nearest: torch.Tensor):
     """[V, H, W, 3] -> the pre-upsample stage maps (s1, s2, s3) of the
     nearest views (in pyramid_dtype): the form the pyramid cache keeps."""
+    cdt, chain = _pyramid_dtypes(cfg)
     with record_function("render.pyramid"):
         return feature_pyramid.apply_stages(
             params["aggregator"]["pyramid"], images_nearest,
-            cfg.agg.act_type, chain_dtype=_chain_dtype(cfg))
+            cfg.agg.act_type, chain_dtype=chain, compute_dtype=cdt)
 
 
 def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,

@@ -392,6 +392,20 @@ def _dtype_name(name: str) -> str:
     return name
 
 
+def chain_dtype(cfg: AggregatorConfig) -> str:
+    """The type the chain computes in, as JAX aggregator.py:312-313,
+    397-405 picks it: shading_dtype when that is bfloat16, else
+    compute_dtype when that is bfloat16, else float32.  JAX's
+    compute_dtype chain rounds each product's operands to bf16 and keeps
+    its sums, biases and activations in float32, which is how the bf16
+    kernels round (only its single-Linear alpha head stays float32 there:
+    a bf16-sized difference of one output)."""
+    for name in (cfg.shading_dtype, cfg.compute_dtype):
+        if _dtype_name(name) == "bfloat16":
+            return name
+    return "float32"
+
+
 def chain_plain(emb: torch.Tensor, dists: torch.Tensor, extra: torch.Tensor,
                 layers: Dict, cfg: AggregatorConfig,
                 compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -634,15 +648,30 @@ def backward_on_card(layout: ChainLayout, w, b, emb, dists, extra, dfeat,
     return d_emb, d_dists, d_extra, chain_dw(layout, ascr, gscr, dbpart)
 
 
+def pack_for(params: Dict, cfg: AggregatorConfig, de: int, dd: int,
+             ce: int) -> Tuple[ChainLayout, torch.Tensor, torch.Tensor]:
+    """(layout, w, b) of `params` packed for the card's kernels in
+    chain_dtype(cfg), for raw inputs of widths de, dd and ce: what
+    fused_feat_alpha takes as `packed`, so that the chunks of one step
+    (and remat's recomputes) share one pack."""
+    layout = chain_layout(params, cfg, de, dd, ce)
+    with torch.no_grad():
+        w, b = pack_chain(params, layout,
+                          COMPUTE_DTYPES[chain_dtype(cfg)])
+    return layout, w, b
+
+
 class FusedFeatAlpha(torch.autograd.Function):
     """(feat, alpha_raw) of the chain, differentiable in its inputs and in
     every weight and bias.  Saves only the raw inputs and the weights (on
-    the card packed once, in the forward); the backward recomputes the
-    chain.  CUDA tensors launch the kernels (or raise); CPU tensors take the
-    plain versions."""
+    the card as `packed`, pack_for's (layout, w, b) of the same params); the
+    backward recomputes the chain, so no pre-activation is kept: what JAX's
+    fused_leaky_vjp (mlp._linear_leaky) buys, a smaller saved set, the
+    fused chain has whether the knob is on or off.  CUDA tensors launch the
+    kernels (or raise); CPU tensors take the plain versions."""
 
     @staticmethod
-    def forward(ctx, params_like, cfg, emb, dists, extra, *leaves):
+    def forward(ctx, params_like, cfg, packed, emb, dists, extra, *leaves):
         params = nest_like(params_like, [
             {"w": leaves[2 * i], "b": leaves[2 * i + 1]}
             for i in range(len(leaves) // 2)])
@@ -651,11 +680,8 @@ class FusedFeatAlpha(torch.autograd.Function):
             ctx.layout = None
             ctx.save_for_backward(emb, dists, extra, *leaves)
             return chain_plain(emb, dists, extra, params, cfg,
-                               cfg.shading_dtype)
-        ctx.layout = chain_layout(params, cfg, emb.shape[1], dists.shape[1],
-                                  extra.shape[1])
-        w, b = pack_chain(params, ctx.layout,
-                          COMPUTE_DTYPES[_dtype_name(cfg.shading_dtype)])
+                               chain_dtype(cfg))
+        ctx.layout, w, b = packed
         ctx.save_for_backward(emb, dists, extra, w, b)
         return chain_forward(ctx.layout, w, b, emb, dists, extra)
 
@@ -669,7 +695,7 @@ class FusedFeatAlpha(torch.autograd.Function):
                     {"w": rest[2 * i], "b": rest[2 * i + 1]}
                     for i in range(len(rest) // 2)])
                 d_emb, d_dists, d_extra, g = chain_backward_plain(
-                    emb, dists, extra, params, cfg, cfg.shading_dtype,
+                    emb, dists, extra, params, cfg, chain_dtype(cfg),
                     dfeat, dalpha)
                 layers = _layer_list(g)
             else:
@@ -678,19 +704,25 @@ class FusedFeatAlpha(torch.autograd.Function):
                     dalpha.contiguous())
                 layers = unpack_chain(packed, layout)
         flat = [x for layer in layers for x in (layer["w"], layer["b"])]
-        return (None, None, d_emb, d_dists, d_extra, *flat)
+        return (None, None, None, d_emb, d_dists, d_extra, *flat)
 
 
 def fused_feat_alpha(params: Dict, cfg: AggregatorConfig, emb: torch.Tensor,
-                     dists: torch.Tensor, extra: torch.Tensor):
+                     dists: torch.Tensor, extra: torch.Tensor,
+                     packed: Optional[Tuple] = None):
     """(feat [N, F] f32, alpha_raw [N, H] f32) of the chain `params`
     ({"block1", ["block2"], "block3", "alpha"}) on emb [N, de], dists
     [N, dd] (encoded inside with abs(cfg.dist_xyz_freq) bands, raw when 0)
     and extra [N, ce] (block3's concat tail; ce may be 0), computed in
-    cfg.shading_dtype."""
+    chain_dtype(cfg).  On the card `packed` (pack_for of the same params)
+    lets several calls share one pack; without it the weights are packed
+    here."""
+    if packed is None and emb.is_cuda:
+        packed = pack_for(params, cfg, emb.shape[1], dists.shape[1],
+                          extra.shape[1])
     leaves = [x for layer in _layer_list(params)
               for x in (layer["w"], layer["b"])]
     shape_only = nest_like(params, [None] * (len(leaves) // 2))
     return FusedFeatAlpha.apply(
-        shape_only, cfg, emb.float().contiguous(),
+        shape_only, cfg, packed, emb.float().contiguous(),
         dists.float().contiguous(), extra.float().contiguous(), *leaves)

@@ -100,7 +100,9 @@ def test_train_config_is_the_bench_training_shape(monkeypatch):
 
 EVAL_PRESETS = ["scannet_full", "scannet_hybrid", "scannet_scene101",
                 "scannet_learnable", "scannet_livingroom",
-                "scannet_vangoroom", "fixture_room", "tiny"]
+                "scannet_vangoroom", "fixture_room", "tiny",
+                "nerf_synth_points", "nerf_synth_hybrid",
+                "fixture_nerf_points", "fixture_nerf_hybrid"]
 ALL_SUBCONFIGS = SUBCONFIGS + TRAIN_SUBCONFIGS
 
 
@@ -123,16 +125,21 @@ def test_presets_carry_the_jax_names():
     assert set(JC.PRESETS) <= set(TC.PRESETS)
 
 
-@pytest.mark.parametrize("name,item", [
-    ("nerf_synth_points", "items 8 and 11"),
-    ("nerf_synth_hybrid", "items 8 and 11"),
-    ("fixture_nerf_points", "items 8 and 11"),
-    ("fixture_nerf_hybrid", "items 8 and 11")])
-def test_unported_presets_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        TC.PRESETS[name]()
-    with pytest.raises(NotImplementedError, match=name):
-        TC.PRESETS[name]("scan")
+def test_nerf_train_config_equals_bench_config_nerf(monkeypatch):
+    """nerf_train_config() is the JAX bench's NeRF workload with its
+    environment knobs unset, and NERF_NUM_POINTS its scene size."""
+    for k in ("BENCH_COMPUTE_DTYPE", "BENCH_PYRAMID_DTYPE",
+              "BENCH_SHADING_DTYPE", "BENCH_FUSED_VJP", "BENCH_REMAT_CHAIN",
+              "BENCH_CHAIN_CHUNKS", "BENCH_DEDUP"):
+        monkeypatch.delenv(k, raising=False)
+    jc, tc = bench.bench_config_nerf(), TC.nerf_train_config()
+    for sub in ALL_SUBCONFIGS:
+        assert _fields(getattr(tc, sub)) == _fields(getattr(jc, sub)), sub
+    for f in ("name", "image_hw", "seed"):
+        assert getattr(tc, f) == getattr(jc, f), f
+    assert TC.NERF_NUM_POINTS == bench.NUM_POINTS_NERF
+    assert (tc.agg.remat_chain, tc.agg.chain_chunks, tc.querier.SR,
+            tc.sampling.rays_per_batch) == (True, 16, 80, 3600)
 
 
 @pytest.mark.parametrize("mode", ["preset", "off", "bank", "learnable"])

@@ -16,8 +16,10 @@ Tolerances:
     (5e-3 of a colour is 1.3 levels).
 """
 
+import dataclasses
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -203,11 +205,19 @@ def test_entry_points_default_to_the_card(clis):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--preset", "nerf_synth_points"], "items 8 and 11")])
-def test_cli_refuses_unported(clis, flags, match):
-    _, (root, scan) = clis
+    (["--preset", "tiny_attention"], "tradition_attention")])
+def test_cli_refuses_unported(clis, flags, match, monkeypatch, tmp_path):
+    """A preset with a knob of ROADMAP Queue 1 item 10 (attention fusion)
+    is refused with NotImplementedError naming the knob, when the
+    checkpoint's parameters are laid out."""
+    outs, (root, scan) = clis
+    monkeypatch.setitem(TC.PRESETS, "tiny_attention", lambda: TC.tiny_test(
+    ).replace(agg=dataclasses.replace(TC.tiny_test().agg,
+                                      tradition_attention=True)))
+    shutil.copytree(os.path.join(os.path.dirname(outs["port"][0]), "tiny",
+                                 "ckpt"), tmp_path / "tiny" / "ckpt")
     argv = ["--preset", "tiny", "--data-root", root, "--scan", scan,
-            "--device", "cpu"]
+            "--checkpoints-dir", str(tmp_path), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(argv + flags)
 

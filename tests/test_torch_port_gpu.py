@@ -1120,3 +1120,75 @@ def test_per_voxel_knn_on_card_equals_cpu_and_supervoxel(cuda):
     assert kout.pnt_mask.any()
     assert torch.equal(torch.sort(kout.sample_pidx, dim=-1).values,
                        torch.sort(ksv.sample_pidx, dim=-1).values)
+
+
+def _nerf_tiny(**agg):
+    """tiny_test shaped as fixture_nerf_points (no fusion, no drop, no
+    blur, 8 x 8 random rays, the chain in 4 rematerialised chunks), with
+    aggregator overrides."""
+    c = TC.tiny_test()
+    agg = {"use_nearest": 0, "drop_ratio": 0.0, "remat_chain": True,
+           "chain_chunks": 4, **agg}
+    return c.replace(
+        agg=dataclasses.replace(c.agg, **agg),
+        sampling=dataclasses.replace(c.sampling, random_sample="random",
+                                     random_sample_size=8),
+        blur=dataclasses.replace(c.blur, add_blur_sim=False),
+        loss=dataclasses.replace(c.loss, use_frame_weight=False))
+
+
+def _grads_of_step(cfg, dev):
+    points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+    st = tstate.create_train_state(renderer.init_params(cfg, seed=0,
+                                                        device=dev),
+                                   points, cfg, device=dev)
+    batch = synthetic.make_synthetic_batch(cfg, device=dev)
+    noise = torch.rand((cfg.sampling.rays_per_batch,
+                        cfg.querier.z_depth_dim),
+                       generator=torch.Generator().manual_seed(3)).to(dev)
+    items, g_net, g_table = tstep.loss_and_grads(st, grid, batch, None, cfg,
+                                                 noise=noise)
+    return items, g_table, torch.cat([x.reshape(-1)
+                                      for x in tstate.tree_leaves(g_net)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_chunked_chain_step_on_card_matches_cpu(cuda, remat):
+    """The NeRF-shaped step with 4 chain chunks, remat on or off: on the
+    card the chain launches per chunk (twice forward with remat's
+    recompute), the gradients equal the card's remat-off step bit for bit
+    and agree with the CPU's (loss items rtol 1e-4 / atol 1e-6, gradients
+    rtol 1e-4 / atol 1e-5 * max|g|, float32 chains)."""
+    cfg = _nerf_tiny(remat_chain=remat)
+    before = dict(TSC.LAUNCHES)
+    card = _grads_of_step(cfg, cuda)
+    torch.cuda.synchronize()
+    assert {k: TSC.LAUNCHES[k] - before[k] for k in before} == {
+        "shading_chain_fwd": 8 if remat else 4, "shading_chain_bwd": 4,
+        "shading_chain_dw": 4}
+    off = _grads_of_step(_nerf_tiny(remat_chain=False), cuda)
+    for a, b in zip(card[1:], off[1:]):
+        assert torch.equal(a, b)
+    cpu = _grads_of_step(cfg, torch.device("cpu"))
+    for k, v in cpu[0].items():
+        torch.testing.assert_close(card[0][k].cpu(), v, rtol=1e-4, atol=1e-6)
+    for got, ref in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
+                                   atol=float(1e-5 * ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_compute_dtype_bf16_step_on_card_matches_cpu(cuda):
+    """compute_dtype = bfloat16 (shading_dtype float32): the chain takes the
+    bf16 kernels and the colour branch rounds its operands; the card's
+    network gradient within ops/shading_chain.tolerance's bf16 gradient
+    limit (relative L2) of the CPU's, the loss items within 1e-3."""
+    cfg = _nerf_tiny(compute_dtype="bfloat16")
+    assert TSC.chain_dtype(cfg.agg) == "bfloat16"
+    card = _grads_of_step(cfg, cuda)
+    cpu = _grads_of_step(cfg, torch.device("cpu"))
+    for k, v in cpu[0].items():
+        torch.testing.assert_close(card[0][k].cpu(), v, rtol=1e-3, atol=1e-5)
+    assert TSC.rel_l2(card[2].cpu(), cpu[2]) < TSC.tolerance("bfloat16",
+                                                             "grad")

@@ -179,7 +179,9 @@ def test_synthetic_data_matches_jax_generator():
             np.asarray(a[name], np.float32), name)
 
 
-@pytest.mark.parametrize("preset", ["tiny_test", "scannet_full"])
+@pytest.mark.parametrize("preset", ["tiny_test", "scannet_full",
+                                    "fixture_nerf_points",
+                                    "nerf_synth_hybrid"])
 def test_init_params_shapes_match_jax(preset):
     from hybridneuralrendering_tpu import config as JC
     from hybridneuralrendering_tpu_torch import config as TC

@@ -561,9 +561,13 @@ def test_drop_ray_mask_matches_jax():
                 jagg.drop_ray_mask(ja, R, pn, ps))
 
 
-@pytest.mark.parametrize("knob", [{"remat_chain": True}, {"chain_chunks": 2},
-                                  {"fused_leaky_vjp": True}])
+@pytest.mark.parametrize("knob", [{"agg_distance_kernel": "sh_intrp"},
+                                  {"tradition_attention": True},
+                                  {"act_type": "relu"}])
 def test_unported_training_knobs_raise(knob):
+    """The knobs of ROADMAP Queue 1 item 10, and a chain the fused kernels
+    do not take, raise in training (the chain's remat, chunk and fused-VJP
+    knobs run: tests/test_torch_port_chain_knobs.py)."""
     jc, tc = configs(**knob)
     tp = trenderer.init_params(configs()[1], device="cpu")
     kw = {k: torch.zeros(1) for k in (

@@ -117,6 +117,19 @@ Phases, each printing one JSON progress line:
                  fixture_nerf_points --load-points 1 for 60 steps and
                  cli.test on 2 whole test frames (40 chunks a frame), each
                  call's launches equal to its schedule's.
+ 13. knobs      the aggregator's other model code (ROADMAP item 10): the
+                 chain kernels at de = 16 and 25 (the embeddings sh_intrp
+                 and gau_intrp leave) in phase 3; serve_knobs, the serve
+                 requests with each of sh_intrp, gau_intrp, attention,
+                 attention + Gumbel and the plane background, launches as
+                 the preset's, 1,024 rays against the CPU and one planted
+                 fault each; train_check_<knob>, one card-vs-CPU step each.
+ 14. drivers    inside eval_cli, cli.render_vid (8 path frames, frame 1
+                 against the CPU, frame 2 rejected) and cli.visualize (16
+                 frames, PSNR lines equal to cli.test's); after
+                 train_cli_nerf, render_vid_nerf (8 orbit frames).  Without
+                 imageio both video calls must end with ModuleNotFoundError
+                 after their PNGs, as the JAX CLI's would.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step, each with the blur bank and with
 the learnable kernel, and one more NeRF request and NeRF step, and prints
@@ -124,7 +137,8 @@ the kernels that took the most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
 the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli,
-train_cli, serve_nerf, train_nerf and train_cli_nerf runs), the card as
+train_cli, serve_nerf, train_nerf, train_cli_nerf, serve_knobs,
+render_vid, visualize and render_vid_nerf runs), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -746,7 +760,7 @@ def phase_serve(cfg, points, grid, params):
         .max_memory_allocated(),
         select_rows=_select_row_census(cfg, points, grid, params,
                                        requests[0]))
-    return requests, outs, launches
+    return requests, outs, launches, RAYS_PER_REQUEST / (steady / 1e3)
 
 
 def _full_neighbourhoods(cfg, grid, loc):
@@ -999,10 +1013,12 @@ def _chain_inputs(cfg, n, gen):
     table's scale, offsets within the query radius (a third of the slots
     empty, zero), colours in [0, 1], unit-vector deltas and their dot."""
     import torch
+    from hybridneuralrendering_tpu_torch.models import aggregator
     q = cfg.querier
     radius = q.radius_limit_scale * max(q.vsize[0], q.vsize[1])
-    emb = 0.1 * torch.randn(n, cfg.agg.point_features_dim, generator=gen,
-                            device=DEVICE)
+    # the embedding the chain reads: what the distance kernel leaves
+    de = cfg.agg.point_features_dim - aggregator.consumed_channels(cfg.agg)
+    emb = 0.1 * torch.randn(n, de, generator=gen, device=DEVICE)
     dists = (torch.rand(n, cfg.agg.dist_dim, generator=gen, device=DEVICE)
              * 2 - 1) * radius
     dists[torch.rand(n, generator=gen, device=DEVICE) < 1 / 3] = 0.0
@@ -1726,7 +1742,7 @@ def _cached_faults():
 
 
 def phase_train_check(cfg, points, grid, grid_c, params, learnable=False,
-                      nerf_ds=None):
+                      nerf_ds=None, knob=None):
     """One step of CHECK_PATCHES^2 patches of CHECK_PATCH_SIZE^2 rays from
     one state on the card and on the CPU (plain versions).  The bf16
     chains round at other points on the two devices.  The card's step must
@@ -1757,7 +1773,12 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False,
     NerfSynthScene of cfg = nerf_train_config()) it is one uncached step
     of CHECK_PATCHES^2 * CHECK_PATCH_SIZE^2 random rays of train frame 0,
     SR = 80 and K = 8, the chain in its 16 rematerialised chunks,
-    `train_check_nerf`, with _nerf_faults()."""
+    `train_check_nerf`, with _nerf_faults().  With `knob` (a name of
+    KNOB_VARIANTS; cfg, points and params of knob_config / knob_state) it
+    is one uncached step, `train_check_<knob>`, without faults (serve_knobs
+    plants them); for the plane the batch carries the plane keys and its
+    bg_ray is computed once, on the CPU, for both steps (the foreground
+    splat's ceil may round otherwise on the card: serve_knobs)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1784,6 +1805,9 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False,
                                      np.random.default_rng(99))
         arrays = {k: v for k, v in nerf_ds.get_batch(
             0, pixelcoords=pix).items() if k not in HOST_KEYS}
+    if knob == "plane":
+        arrays = TT.maybe_add_bg_ray(_plane_arrays(arrays), cpu(points),
+                                     small)
     noise = torch.rand((R, small.querier.z_depth_dim),
                        generator=torch.Generator().manual_seed(5))
     bank = torch.as_tensor(blur.generate_kernel_bank(small.blur))
@@ -1911,6 +1935,9 @@ def phase_train_check(cfg, points, grid, grid_c, params, learnable=False,
 
     if learnable:
         check("train_check_learnable", False, _learnable_faults())
+        return
+    if knob is not None:
+        check(f"train_check_{knob}", False, {})
         return
     if nerf_ds is not None:
         check("train_check_nerf", False, _nerf_faults())
@@ -2053,6 +2080,9 @@ def phase_eval_cli(cfg, st, grid):
                                   scannet.device_batch(fault, DEVICE), cfg)
         fault_errs = _ray_errors(wrong, ref)
         check_s = time.perf_counter() - t0
+        # the path and preview drivers on the same scene and checkpoint
+        more = [phase_render_vid(cfg, root, ck_root, st_c, grid_c),
+                phase_visualize(cfg, root, ck_root)]
     log("eval_cli", frames=frames, scores=scores, launches=launches,
         ray_hit_share=sum(frames_hit) / len(frames_hit),
         mean_frame_ms=sum(f["ms"] for f in frames) / len(frames),
@@ -2069,7 +2099,7 @@ def phase_eval_cli(cfg, st, grid):
     if not _rejected(fault_errs, CHECK_TOL):
         raise AssertionError(f"frame 0 with frame 1's pose passed the "
                              f"check: {fault_errs}")
-    return launches
+    return launches, more
 
 
 # the train_cli phase: cli.train.main on a ScanNet-layout scene of
@@ -2952,6 +2982,492 @@ def phase_train_cli_nerf(root, cfg):
     return {k: launches[k] + t_launches[k] for k in launches}
 
 
+# the aggregator's other model code (ROADMAP item 10) in serve_knobs and
+# train_check_knobs; the plane behind the scene (its points lie within
+# z <= 3) facing the camera, and its colour
+KNOB_VARIANTS = ("sh_intrp", "gau_intrp", "attention", "attention_gumbel",
+                 "plane")
+PLANE = dict(plane_pnt=(0.0, 0.0, 3.5), plane_normal=(0.0, 0.1, 1.0),
+             plane_color=(0.25, 0.55, 0.45))
+# raised density bias of knob_state's parameters, and the spread of the
+# embeddings of the distance kernels' points in serve_knobs (N(0, scale)):
+# at 4 the SH sign flip moved 256 rays' colours by at most 4.8e-3 on the
+# card, under the check's 5e-3; at 8 the SH terms saturate, where a flip
+# moves them most.  The Gaussian kernel keeps 4: its radii are sigmoids of
+# the embedding, which at 8 would leave most weights zero.  The training
+# checks keep the scene's 0.1-scale table: with the spread one, the bf16
+# chain's card-vs-CPU gradient of the fusion weights read 8.04e-3 against
+# the train_check limit of 8e-3.
+KNOB_ALPHA_BIAS = 3.0
+KNOB_EMBEDDING_SCALE = {"sh_intrp": 8.0, "gau_intrp": 4.0}
+# rays of request 0 that serve_knobs holds against the CPU
+KNOB_CHECK_RAYS = 1024
+# pixels: a projected coordinate this close to an integer or to the
+# image's edge may round to the other side on the CPU (ceil, floor)
+NEAR_INTEGER = 1e-3
+# share of a view's pixels whose foreground splat may differ between the
+# card and the CPU: points within float32 rounding of a pixel's edge
+# (about 100 of 2.4M projected coordinates lie within 1e-5 pixel of one)
+FG_FLIP_SHARE = 1e-3
+
+
+def knob_config(cfg, name):
+    """cfg with one knob of KNOB_VARIANTS on."""
+    import dataclasses
+    if name == "plane":
+        return cfg.replace(render=dataclasses.replace(cfg.render,
+                                                      bgmodel="img_plane"))
+    agg = {"sh_intrp": dict(agg_distance_kernel="sh_intrp"),
+           "gau_intrp": dict(agg_distance_kernel="gau_intrp"),
+           "attention": dict(tradition_attention=True),
+           "attention_gumbel": dict(tradition_attention=True,
+                                    use_gumbel_softmax=True)}[name]
+    return cfg.replace(agg=dataclasses.replace(cfg.agg, **agg))
+
+
+def knob_state(cfg, name, points, spread=True):
+    """(cfg, params, points) of a knob: full-width parameters from seed 0
+    with the density head's bias raised by KNOB_ALPHA_BIAS (so that the
+    colours come from the points, whose weights the kernels set), the
+    attention's output projection seeded too (zero at init, which would
+    leave the fusion out of every output), and for the distance kernels
+    the points' embeddings N(0, KNOB_EMBEDDING_SCALE) (the table's
+    0.1-scale embeddings keep every rotation inside the +-pi/4 clip, every
+    SH term near sigmoid(0) and the neighbours' features alike, where a
+    planted fault would not show); `spread` False keeps the scene's table
+    (the training checks, which plant no fault)."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch.models import renderer
+    kcfg = knob_config(cfg, name)
+    params = renderer.init_params(kcfg, seed=0, device=DEVICE)
+    with torch.no_grad():
+        params["aggregator"]["alpha"][-1]["b"] += KNOB_ALPHA_BIAS
+    att = params["aggregator"].get("attention")
+    if att is not None:
+        g = torch.Generator(device=DEVICE).manual_seed(4)
+        att["proj"]["w"] = 0.2 * torch.randn(
+            att["proj"]["w"].shape, generator=g, device=DEVICE)
+    if spread and name in KNOB_EMBEDDING_SCALE:
+        g = torch.Generator(device=DEVICE).manual_seed(5)
+        table = points.table.clone()
+        width = cfg.points.feature_dim
+        table[:, 3:3 + width] = KNOB_EMBEDDING_SCALE[name] * torch.randn(
+            (table.shape[0], width), generator=g, device=table.device)
+        points = dataclasses.replace(points, table=table)
+    return kcfg, params, points
+
+
+def _plane_arrays(b):
+    """A batch (numpy arrays or tensors) with the plane keys, the left half
+    of its views' images replaced by the plane colour +- 0.05 (seeded), so
+    that some samples fit the plane's +-0.03 colour window and some do
+    not.  The right half keeps the images' texture: on views of nearly
+    one colour the bf16 pyramid's features carry little signal, and the
+    card-vs-CPU gradient of the fusion weights read 2.3e-2 against
+    train_check's 8e-3."""
+    import numpy as np
+    import torch
+    imgs = b["images_nearest"]
+    W = imgs.shape[2]
+    color = np.asarray(PLANE["plane_color"], np.float32)
+    noise = np.random.default_rng(7).uniform(
+        -0.05, 0.05, tuple(imgs.shape)).astype(np.float32)
+    new = (imgs.cpu().numpy() if torch.is_tensor(imgs)
+           else np.array(imgs, np.float32))
+    new[:, :, :W // 2] = np.clip(color + noise, 0, 1)[:, :, :W // 2]
+    out = dict(b, **{k: np.asarray(v, np.float32) for k, v in PLANE.items()})
+    if torch.is_tensor(imgs):
+        out = {k: torch.as_tensor(v, device=imgs.device)
+               if not torch.is_tensor(v) else v for k, v in out.items()}
+        out["images_nearest"] = torch.as_tensor(new, device=imgs.device)
+    else:
+        out["images_nearest"] = new
+    return out
+
+
+# the attention requests' views: camera offsets in metres (the serve
+# requests' views all sit at the request's camera, where every view is
+# valid for the same samples and sees the same delta view direction)
+VIEW_SPREAD = ((0.8, 0.0), (-0.8, 0.3), (0.3, -0.6), (-0.2, 0.5))
+
+
+def _spread_views(b):
+    """The request with its nearest views moved apart by VIEW_SPREAD (x, y),
+    so that a sample is valid in some views and not in others."""
+    import torch
+    c2w = b["c2w_nearest"].clone()
+    shift = torch.zeros((c2w.shape[0], 3), device=c2w.device)
+    shift[:, :2] = torch.tensor(VIEW_SPREAD[:c2w.shape[0]],
+                                device=c2w.device)
+    c2w[:, :3, 3] += shift
+    return dict(b, c2w_nearest=c2w, campos_nearest=c2w[:, :3, 3].clone())
+
+
+def _knob_faults(name):
+    """The planted fault of a knob: SH evaluated with flip_dir=True; the
+    Gaussian kernel's rotations not clipped to +-pi/4; attention without
+    its view mask; the plane without its foreground mask."""
+    import torch
+    from hybridneuralrendering_tpu_torch.core import bg_plane
+    from hybridneuralrendering_tpu_torch.models import aggregator as agg
+    from hybridneuralrendering_tpu_torch.models import attention
+
+    def flipped(real):
+        return lambda d, deg, flip_dir=False: real(d, deg, flip_dir=True)
+
+    def unclipped(real):
+        def dist_weight_ex(name_, dists, pnt_mask, emb, vsize, grid_vox_sz,
+                           sh_degree=agg.SH_DEGREE):
+            if name_ != "gau_intrp":
+                return real(name_, dists, pnt_mask, emb, vsize, grid_vox_sz,
+                            sh_degree)
+            radii = vsize[2] * 20.0 * torch.sigmoid(emb[..., 1:4])
+            gau = agg.compute_world2local_dist(dists[..., :3], radii,
+                                               emb[..., 4:7])
+            w = (pnt_mask.to(dists.dtype) * torch.abs(emb[..., 0])
+                 * torch.exp(-0.5 * torch.sum(gau ** 2, dim=-1)))
+            return w, emb[..., 7:].contiguous()
+        return dist_weight_ex
+
+    def unmasked(real):
+        return lambda p, q, c, valid=None, **kw: real(p, q, c, None, **kw)
+
+    def no_foreground(real):
+        return lambda xyz, mask, w2c, intr, H, W: torch.zeros(
+            H, W, device=xyz.device)
+
+    return {"sh_intrp": ("flip_dir", _Planted(agg, "sh_basis", flipped)),
+            "gau_intrp": ("rotation not clipped",
+                          _Planted(agg, "dist_weight_ex", unclipped)),
+            "attention": ("no view mask",
+                          _Planted(attention, "apply", unmasked)),
+            "attention_gumbel": ("no view mask",
+                                 _Planted(attention, "apply", unmasked)),
+            "plane": ("no foreground mask",
+                      _Planted(bg_plane, "fg_pixel_mask", no_foreground))
+            }[name]
+
+
+def _plane_rays_kept(req_c, points_c, cfg):
+    """Rays of a CPU plane request whose crossing projects, in every view,
+    farther than NEAR_INTEGER from an integer pixel and from the edge, and
+    onto a pixel whose foreground splat the card and the CPU agree on;
+    the pixels they disagree on, per view.  Returns (kept [R] bool, flips
+    per view)."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch.core import bg_plane
+    H, W = cfg.image_hw
+    xyz, _ = bg_plane.ray_plane_cross(req_c["campos"], req_c["raydir"],
+                                      req_c["plane_pnt"],
+                                      req_c["plane_normal"])
+    keep = np.ones(xyz.shape[0], bool)
+    flips = []
+    intr = req_c["intrinsic_nearest"]
+    for c2w in req_c["c2w_nearest"]:
+        w2c = torch.linalg.inv(c2w)
+        cam = torch.cat([xyz.double(), torch.ones_like(xyz[:, :1]).double()],
+                        -1) @ torch.linalg.inv(c2w.double()).T
+        xy = ((cam[:, :3] / cam[:, 2:3]) @ intr.double().T)[:, :2].numpy()
+        frac = np.abs(xy - np.round(xy))
+        edge = np.minimum.reduce([np.abs(xy[:, 0]), np.abs(xy[:, 0] - W + 1),
+                                  np.abs(xy[:, 1]), np.abs(xy[:, 1] - H + 1)])
+        keep &= (frac > NEAR_INTEGER).all(-1) & (edge > NEAR_INTEGER)
+        fg_c = bg_plane.fg_pixel_mask(points_c.xyz, points_c.mask, w2c,
+                                      intr, H, W)
+        fg_d = bg_plane.fg_pixel_mask(
+            points_c.xyz.to(DEVICE), points_c.mask.to(DEVICE),
+            torch.linalg.inv(c2w.to(DEVICE)), intr.to(DEVICE), H, W).cpu()
+        diff = (fg_c != fg_d).numpy()
+        flips.append(int(diff.sum()))
+        cx = np.clip(np.ceil(xy[:, 0]).astype(np.int64), 0, W - 1)
+        cy = np.clip(np.ceil(xy[:, 1]).astype(np.int64), 0, H - 1)
+        keep &= ~diff[cy, cx]
+    return keep, flips
+
+
+def phase_serve_knobs(cfg, points, grid, grid_c, requests, base_steady):
+    """The serve phase's requests with each knob of KNOB_VARIANTS
+    (knob_state's parameters and points; the plane's requests with the
+    plane keys, their bg_ray computed in each request; the attention's
+    with their views moved apart, _spread_views): launches equal to
+    the preset path's (one K-min and one chain forward a chunk), steady
+    rays/s beside the preset path's and the peak; KNOB_CHECK_RAYS rays of
+    request 0 against the CPU (the plane's rays kept by _plane_rays_kept,
+    its bg_ray among the outputs); then request 0 on the card with the
+    knob's planted fault (_knob_faults), which the same check must
+    reject."""
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    chunks = sum(-(-r["raydir"].shape[0] // cfg.sampling.eval_rays)
+                 for r in requests)
+    total = None
+    for name in KNOB_VARIANTS:
+        t0 = time.perf_counter()
+        kcfg, params, pts = knob_state(cfg, name, points)
+        reqs = ([_plane_arrays(r) for r in requests] if name == "plane"
+                else [_spread_views(r) for r in requests]
+                if name.startswith("attention") else requests)
+
+        def render(req):
+            req = TT.maybe_add_bg_ray(req, pts, kcfg)
+            out = serve.render_rays(params, pts, grid, req, kcfg)
+            if "bg_ray" in req:
+                out["bg_ray"] = req["bg_ray"]
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        outs, ms = [], []
+        for req in reqs:
+            t = time.perf_counter()
+            outs.append(render(req))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(launches, 0)
+        want.update(k_smallest=chunks, shading_chain_fwd=chunks)
+        if launches != want:
+            raise AssertionError(f"serve {name} launched {launches}, want "
+                                 f"{want}")
+        for out in outs:
+            for k, v in out.items():
+                if v.is_floating_point() and not torch.isfinite(v).all():
+                    raise AssertionError(f"serve {name}: {k} not finite")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        req_c = cpu(dict(reqs[0],
+                         raydir=reqs[0]["raydir"][:KNOB_CHECK_RAYS]))
+        pts_c = cpu(pts)
+        keep, flips = None, None
+        if name == "plane":
+            keep, flips = _plane_rays_kept(req_c, pts_c, kcfg)
+            if max(flips) > FG_FLIP_SHARE * kcfg.image_hw[0] * \
+                    kcfg.image_hw[1] or keep.sum() < KNOB_CHECK_RAYS // 2:
+                raise AssertionError(f"serve plane: {flips} foreground "
+                                     f"pixels differ, {keep.sum()} rays kept")
+        t_cpu = time.perf_counter()
+        breq = TT.maybe_add_bg_ray(req_c, pts_c, kcfg)
+        ref = serve.render_rays(cpu(params), pts_c, grid_c, breq, kcfg)
+        if "bg_ray" in breq:
+            ref["bg_ray"] = breq["bg_ray"]
+        cpu_s = time.perf_counter() - t_cpu
+        pick = (torch.arange(KNOB_CHECK_RAYS) if keep is None
+                else torch.as_tensor(keep).nonzero()[:, 0])
+
+        def errs_of(out):
+            return _ray_errors({k: v[:KNOB_CHECK_RAYS][pick.to(v.device)]
+                                for k, v in out.items()},
+                               {k: v[pick] for k, v in ref.items()})
+
+        errs = errs_of(outs[0])
+        fault_name, fault = _knob_faults(name)
+        with fault:
+            fault_errs = errs_of(render(reqs[0]))
+        steady = sorted(ms[1:])[len(ms[1:]) // 2]
+        hit = float(torch.cat([o["ray_mask"] for o in outs]).float().mean())
+        log("serve_knobs", knob=name, request_ms=ms, launches=launches,
+            steady_rays_per_s=RAYS_PER_REQUEST / (steady / 1e3),
+            preset_steady_rays_per_s=base_steady, ray_hit_share=hit,
+            max_memory_allocated=peak, check_rays=int(len(pick)),
+            fg_pixels_differing=flips, check_max_abs_err=errs,
+            check_tolerance=CHECK_TOL, fault=fault_name,
+            fault_max_abs_err=fault_errs, cpu_seconds=cpu_s,
+            seconds=time.perf_counter() - t0)
+        bad = _rejected(errs, CHECK_TOL)
+        if bad:
+            raise AssertionError(f"serve {name}: card and CPU differ: {bad}")
+        if not _rejected(fault_errs, CHECK_TOL):
+            raise AssertionError(f"serve {name}: the planted fault "
+                                 f"({fault_name}) passed: {fault_errs}")
+    return total
+
+
+def _frame_timer(frames, H, W):
+    """A render_full_frame wrapper that times each frame to synchronize
+    and keeps its image."""
+    import torch
+
+    def make(real):
+        def render_full_frame(*a, **kw):
+            t = time.perf_counter()
+            img = real(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if img.shape != (H, W, 3) or not torch.isfinite(img).all():
+                raise AssertionError(f"frame {len(frames)}: image "
+                                     f"{tuple(img.shape)} not finite")
+            frames.append(dict(ms=ms, rays_per_s=H * W / (ms / 1e3),
+                               img=img))
+            return img
+        return render_full_frame
+    return make
+
+
+def _run_render_vid(argv, cfg, n_frames, grids=1):
+    """cli.render_vid.main(argv) on the card, each frame timed, launches
+    over the call; without imageio it must end with ModuleNotFoundError
+    naming it after all frame PNGs are written (as the JAX CLI), with it
+    the video must exist.  Returns (frames, launches, video, seconds)."""
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.cli import render_vid
+    H, W = cfg.image_hw
+    frames = []
+    try:
+        import imageio  # noqa: F401
+        has_imageio = True
+    except ModuleNotFoundError:
+        has_imageio = False
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    video = None
+    with _Planted(serve, "render_full_frame", _frame_timer(frames, H, W)):
+        try:
+            video = render_vid.main(argv)
+            if not has_imageio:
+                raise AssertionError("render_vid wrote a video without "
+                                     "imageio")
+        except ModuleNotFoundError as e:
+            if has_imageio or "imageio" not in str(e):
+                raise
+            video = f"ModuleNotFoundError: {e}"
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    chunks = -(-H * W // cfg.sampling.eval_rays)
+    want = _predicted_launches(cfg, launches, renders=n_frames * chunks,
+                               grids=grids)
+    if launches != want or len(frames) != n_frames:
+        raise AssertionError(f"render_vid: {len(frames)} frames, launched "
+                             f"{launches}, want {want}")
+    if has_imageio and not os.path.exists(video):
+        raise AssertionError(f"render_vid: no video at {video}")
+    return frames, launches, video, seconds
+
+
+def phase_render_vid(cfg, root, ck_root, st_c, grid_c):
+    """cli.render_vid on eval_cli's scene and checkpoint (--key-stride 1
+    --frames 8: the 4 training poses' closed path, 8 whole 480x640 frames):
+    rays/s a frame, launches (per frame one K-min and one chain forward a
+    chunk; the loaded points' grid), the PNGs; CHECK_RAYS pixels of path
+    frame 1 against the CPU render of the same pose from the same file,
+    and frame 2 (the next pose) must be rejected by the same check."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import serve
+    from hybridneuralrendering_tpu_torch.cli import render_vid
+    from hybridneuralrendering_tpu_torch.data import scannet
+    import argparse
+    H, W = cfg.image_hw
+    n = 8
+    argv = ["--preset", "serve", "--data-root", root, "--scan", "synth",
+            "--checkpoints-dir", ck_root, "--name", "synth_full",
+            "--key-stride", "1", "--frames", str(n), "--device", DEVICE]
+    frames, launches, video, seconds = _run_render_vid(argv, cfg, n)
+    pngs = sorted(os.listdir(os.path.join(ck_root, "synth_full_vid",
+                                          "images")))
+    if pngs != [f"step-{i:04d}-path.png" for i in range(n)]:
+        raise AssertionError(f"render_vid wrote {pngs}")
+    t0 = time.perf_counter()
+    ds = scannet.ScannetScene(root, "synth", cfg, "train")
+    poses = render_vid.scene_path_poses(ds, argparse.Namespace(
+        frames=n, key_stride=1, phi=0.0, radius=0.0))
+    pick = np.linspace(0, H * W - 1, CHECK_RAYS).astype(np.int64)
+    pix = np.stack([pick % W, pick // W], -1).astype(np.float32)[:, None]
+    view = render_vid.PathView(ds, poses)
+    ref = serve.render_rays(
+        st_c.params, st_c.points, grid_c,
+        scannet.device_batch(view.get_batch(1, pixelcoords=pix), "cpu"),
+        cfg)["coarse_raycolor"]
+    idx = torch.as_tensor(pick)
+
+    def err(k):
+        img = frames[k]["img"].reshape(-1, 3).cpu()
+        return float((img[idx] - ref).abs().max())
+
+    errs, fault = err(1), err(2)
+    log("render_vid", frames=[{k: v for k, v in f.items() if k != "img"}
+                              for f in frames],
+        launches=launches, seconds=seconds, video=video, pngs=len(pngs),
+        check_rays=CHECK_RAYS, check_max_abs_err=errs,
+        check_tolerance=CHECK_TOL, fault_next_pose_max_abs_err=fault,
+        check_seconds=time.perf_counter() - t0)
+    if errs > CHECK_TOL:
+        raise AssertionError(f"render_vid frame 1: card and CPU differ "
+                             f"{errs}")
+    if fault <= CHECK_TOL:
+        raise AssertionError(f"render_vid: the next pose passed the check "
+                             f"({fault})")
+    return launches
+
+
+def phase_visualize(cfg, root, ck_root):
+    """cli.visualize on eval_cli's checkpoint, all 16 test frames (stride
+    1): its PSNR lines (2 decimals) equal cli.test's (3 decimals) for the
+    frames both scored, to the last printed digit; launches as its
+    schedule."""
+    import re
+    import torch
+    from hybridneuralrendering_tpu_torch.cli import visualize
+    H, W = cfg.image_hw
+    argv = ["--preset", "serve", "--data-root", root, "--scan", "synth",
+            "--checkpoints-dir", ck_root, "--name", "synth_full",
+            "--frames", "16", "--device", DEVICE]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    psnrs = visualize.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    chunks = -(-H * W // cfg.sampling.eval_rays)
+    want = _predicted_launches(cfg, launches, renders=len(psnrs) * chunks,
+                               grids=1)
+
+    def lines(sub):
+        with open(os.path.join(ck_root, sub, "log.txt")) as f:
+            return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+                r"frame (\d+): PSNR ([\d.]+)", f.read())}
+
+    vis, test = lines("synth_full_vis"), lines("synth_full_test")
+    both = sorted(set(vis) & set(test))
+    diffs = {i: abs(vis[i] - test[i]) for i in both}
+    pngs = os.listdir(os.path.join(ck_root, "synth_full_vis", "images"))
+    log("visualize", frames=len(psnrs), seconds=seconds, launches=launches,
+        psnr=vis, cli_test_psnr=test, compared=both)
+    if (launches != want or len(pngs) != 16 or len(psnrs) != 16
+            or len(both) < 4
+            or max(diffs.values()) > 0.0051):
+        raise AssertionError(f"visualize: launched {launches} (want {want}),"
+                             f" {len(pngs)} PNGs, PSNR {vis} against "
+                             f"cli.test's {test}")
+    return launches
+
+
+def phase_render_vid_nerf(root, cfg):
+    """cli.render_vid --preset fixture_nerf_points on train_cli_nerf's
+    checkpoint: the spherical orbit, 8 whole 400x400 frames (40 chunks of
+    16 chain pieces each), rays/s a frame, launches as the schedule's;
+    without imageio it ends with ModuleNotFoundError after the 8 PNGs."""
+    n = 8
+    ck = os.path.join(root, "nerf_ckpts")
+    argv = ["--preset", "fixture_nerf_points", "--data-root", root,
+            "--scan", NERF_SCAN, "--checkpoints-dir", ck, "--frames",
+            str(n), "--device", DEVICE]
+    frames, launches, video, seconds = _run_render_vid(argv, cfg, n)
+    pngs = os.listdir(os.path.join(ck, f"{NERF_SCAN}_points_vid", "images"))
+    log("render_vid_nerf", frames=[{k: v for k, v in f.items()
+                                    if k != "img"} for f in frames],
+        launches=launches, seconds=seconds, video=video, pngs=len(pngs))
+    if len(pngs) != n:
+        raise AssertionError(f"render_vid NeRF wrote {pngs}")
+    return launches
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
     """One more training step and one more cached step under
     torch.profiler, each with the blur bank and with the learnable kernel
@@ -2992,13 +3508,20 @@ def main(argv=None) -> int:
     sel = phase_kernels(cfg)
     adam = phase_kernels_train()
     chain = phase_kernels_chain(config.train_config())
+    # the chain at the embedding widths the SH and Gaussian kernels leave
+    for knob, de in (("sh_intrp", 16), ("gau_intrp", 25)):
+        phase_kernels_chain(knob_config(config.train_config(), knob),
+                            label=f"{knob} de={de} ")
     scan = phase_kernels_scan()
     points, grid, params = phase_scene(cfg)
-    requests, outs, serve_launches = phase_serve(cfg, points, grid, params)
+    requests, outs, serve_launches, serve_steady = phase_serve(
+        cfg, points, grid, params)
     pervoxel_launches = phase_serve_pervoxel(cfg, points, grid, params,
                                              requests, outs)
     grid_c = cpu(grid)
     phase_check(cfg, points, grid, params, requests[0], outs[0], grid_c)
+    knob_launches = phase_serve_knobs(cfg, points, grid, grid_c, requests,
+                                      serve_steady)
     if args.profile:
         phase_profile(cfg, points, grid, params, requests[1])
     tcfg = config.train_config()
@@ -3012,7 +3535,12 @@ def main(argv=None) -> int:
                                                          grid)
     phase_train_check(lcfg, points, grid, grid_c, renderer.init_params(
         lcfg, seed=0, device=DEVICE), learnable=True)
-    eval_launches = phase_eval_cli(cfg, st, grid)
+    for knob in KNOB_VARIANTS:
+        kcfg, kparams, kpoints = knob_state(tcfg, knob, points,
+                                            spread=False)
+        phase_train_check(kcfg, kpoints, grid, grid_c, kparams, knob=knob)
+        del kparams, kpoints
+    eval_launches, driver_launches = phase_eval_cli(cfg, st, grid)
     train_cli_launches = phase_train_cli()
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank, staged, learnable)
@@ -3029,6 +3557,7 @@ def main(argv=None) -> int:
                           nerf_ds=n_train)
         del n_points, n_grid, n_params
         nerf_launches.append(phase_train_cli_nerf(root, ncfg))
+        nerf_launches.append(phase_render_vid_nerf(root, ncfg))
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
@@ -3036,6 +3565,7 @@ def main(argv=None) -> int:
                 + train_launches[k] + cached_launches[k]
                 + learnable_launches[k] + eval_launches[k]
                 + train_cli_launches[k] + sum(n[k] for n in nerf_launches)
+                + knob_launches[k] + sum(d[k] for d in driver_launches)
                 for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 

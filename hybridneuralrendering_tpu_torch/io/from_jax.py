@@ -24,7 +24,9 @@ from hybridneuralrendering_tpu_torch.train import state as state_mod
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dicts/lists of float arrays -> the same nesting of float32
-    tensors on `device`."""
+    tensors on `device`.  An integer scalar (attention's num_heads, a
+    Python int in the JAX tree) stays a Python int; any other leaf that is
+    not float raises TypeError."""
     dev = resolve(device)
 
     def walk(node):
@@ -33,6 +35,8 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
         arr = np.asarray(node)
+        if arr.dtype.kind in "iu" and arr.ndim == 0:
+            return int(arr)
         if arr.dtype.kind != "f":
             raise TypeError(f"parameter leaf of dtype {arr.dtype}")
         return torch.tensor(arr, dtype=torch.float32, device=dev)

@@ -31,7 +31,12 @@ from torch.utils.checkpoint import checkpoint
 from hybridneuralrendering_tpu_torch.config import AggregatorConfig
 from hybridneuralrendering_tpu_torch.core.cameras import pers_delta
 from hybridneuralrendering_tpu_torch.core.encoding import positional_encoding
-from hybridneuralrendering_tpu_torch.models import feature_pyramid, fusion, mlp
+from hybridneuralrendering_tpu_torch.core.geometrics import (
+    compute_world2local_dist)
+from hybridneuralrendering_tpu_torch.core.sh import sh_basis
+from hybridneuralrendering_tpu_torch.models import (attention,
+                                                   feature_pyramid, fusion,
+                                                   mlp)
 from hybridneuralrendering_tpu_torch.ops import shading_chain
 
 
@@ -61,6 +66,52 @@ def dist_weight(name: str, dists: torch.Tensor,
     raise KeyError(f"unknown distance kernel {name}")
 
 
+SH_DEGREE = 4   # sh_intrp's bands (JAX dist_weight_ex's sh_degree)
+
+
+def dist_weight_ex(name: str, dists: torch.Tensor, pnt_mask: torch.Tensor,
+                   embedding: torch.Tensor, vsize, grid_vox_sz: float,
+                   sh_degree: int = SH_DEGREE):
+    """The distance kernels that consume leading embedding channels (JAX
+    aggregator.py:72-101): (weights [R, SR, K], the remaining embedding).
+    sh_intrp reads sh_degree**2 SH coefficients per point, gau_intrp a
+    scale, three radii and three roll-pitch-yaw angles (clipped to
+    +-pi/4); the others leave the embedding whole.  The remaining
+    embedding is a contiguous copy (the fused chain takes contiguous
+    inputs); gradients reach the consumed channels through the weights."""
+    m = pnt_mask.to(dists.dtype)
+    if name == "trilinear":
+        scaled = dists * m[..., None] / grid_vox_sz
+        return dist_weight("trilinear", scaled, pnt_mask), embedding
+    if name == "sh_intrp":
+        dist_norm = torch.sqrt(torch.clamp(torch.sum(dists ** 2, dim=-1),
+                                           min=1e-16))
+        dirs = dists / torch.clamp(dist_norm[..., None], min=1e-8)
+        nb = sh_degree ** 2
+        shall = sh_basis(dirs, sh_degree, flip_dir=False)
+        w = m * torch.sum(torch.sigmoid(shall * embedding[..., :nb]),
+                          dim=-1) * (1.0 / torch.clamp(dist_norm, min=1e-8))
+        return w, embedding[..., nb:].contiguous()
+    if name == "gau_intrp":
+        scale = torch.abs(embedding[..., 0])
+        radii = vsize[2] * 20.0 * torch.sigmoid(embedding[..., 1:4])
+        rot = torch.clamp(embedding[..., 4:7], -np.pi / 4, np.pi / 4)
+        gau = compute_world2local_dist(dists[..., :3], radii, rot)
+        w = m * scale * torch.exp(-0.5 * torch.sum(gau ** 2, dim=-1))
+        return w, embedding[..., 7:].contiguous()
+    return dist_weight(name, dists, pnt_mask), embedding
+
+
+def consumed_channels(cfg: AggregatorConfig) -> int:
+    """Leading embedding channels the distance kernel reads (JAX
+    aggregator.py:128-139)."""
+    if cfg.agg_distance_kernel == "sh_intrp":
+        return SH_DEGREE ** 2
+    if cfg.agg_distance_kernel == "gau_intrp":
+        return 7
+    return 0
+
+
 def gradient_clamp(conf: torch.Tensor, lo=0.0001, hi=1.0) -> torch.Tensor:
     """Clamped value forward, identity gradient."""
     return conf - (conf - torch.clamp(conf, lo, hi)).detach()
@@ -80,7 +131,7 @@ def raw2color(raw: torch.Tensor, act_super: bool) -> torch.Tensor:
 def block1_in_dim(cfg: AggregatorConfig) -> int:
     dist_xyz_dim = (cfg.dist_dim if cfg.dist_xyz_freq == 0
                     else 2 * abs(cfg.dist_xyz_freq) * cfg.dist_dim)
-    in_ch = cfg.point_features_dim
+    in_ch = cfg.point_features_dim - consumed_channels(cfg)
     in_ch += 2 * cfg.num_feat_freqs * in_ch if cfg.num_feat_freqs > 0 else 0
     in_ch += dist_xyz_dim if cfg.agg_intrp_order > 0 else 0
     return in_ch
@@ -91,12 +142,9 @@ def viewdir_channels(cfg: AggregatorConfig) -> int:
 
 
 def _check_supported(cfg: AggregatorConfig) -> None:
-    """Raise for knobs the port does not implement (ROADMAP Queue 1 item
-    10, and a chain the fused kernels do not take)."""
+    """Raise for a chain the fused kernels do not take (no JAX preset sets
+    either knob)."""
     unported = {
-        "agg_distance_kernel in (sh_intrp, gau_intrp)":
-            cfg.agg_distance_kernel in ("sh_intrp", "gau_intrp"),
-        "tradition_attention": cfg.tradition_attention,
         "a chain without block3 or an alpha head "
         "(shading_feature_mlp_layer3 == 0)":
             cfg.shading_feature_mlp_layer3 == 0,
@@ -142,8 +190,16 @@ def init(gen: torch.Generator, cfg: AggregatorConfig,
     params["color_feature"] = stack(
         [c_in] + [half] * (cfg.shading_color_mlp_layer - 1), True)
     if cfg.use_nearest >= 0:
-        fin = aux_c + half + (3 if cfg.use_delta_view else 0)
-        params["fusion_weight"] = stack([fin] + [half // 2] * 3 + [1])
+        if cfg.tradition_attention:
+            # the colour feature queries the per-view image features and
+            # delta view directions (JAX aggregator.py:180-186)
+            ctx = aux_c + (3 if cfg.use_delta_view else 0)
+            params["attention"] = attention.init(gen, half, ctx,
+                                                 inner_channels=16,
+                                                 device=device)
+        else:
+            fin = aux_c + half + (3 if cfg.use_delta_view else 0)
+            params["fusion_weight"] = stack([fin] + [half // 2] * 3 + [1])
         params["pyramid"] = feature_pyramid.init(
             gen, act, in_ch=3 + (2 if cfg.add_idx else 0), device=device)
     if cfg.mixup_mode == "partial":
@@ -297,11 +353,9 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
                         sample_loc_w, sample_ray_dirs)
     dists = dists * pnt_mask[..., None].to(f32)
 
-    if cfg.agg_distance_kernel == "trilinear":
-        weight = dist_weight("trilinear", dists * pnt_mask[..., None].to(f32)
-                             / vsize[2], pnt_mask)
-    else:
-        weight = dist_weight(cfg.agg_distance_kernel, dists, pnt_mask)
+    weight, sampled_embedding = dist_weight_ex(
+        cfg.agg_distance_kernel, dists, pnt_mask, sampled_embedding, vsize,
+        grid_vox_sz=vsize[2])
     if (cfg.agg_weight_norm and cfg.agg_distance_kernel != "trilinear"
             and not cfg.agg_distance_kernel.startswith("num")):
         weight = weight / torch.clamp(torch.sum(weight, dim=-1, keepdim=True),

@@ -2,11 +2,12 @@
 (JAX: hybridneuralrendering_tpu/models/fusion.py).
 
 Per-view pyramid features are read at each shading point's reprojection,
-merged across views by a learned weight MLP, and mixed with the 3D colour
-feature.  In training, the rays of `drop_mask` lose their merged image
-feature after the fusion (the JAX package always drops after fusion, which
-is `random_position=1`; it does not read the knob, and neither does the
-port).
+merged across views by a learned weight MLP (or, with
+cfg.tradition_attention, by the QKV attention of models/attention.py), and
+mixed with the 3D colour feature.  In training, the rays of `drop_mask`
+lose their merged image feature after the fusion (the JAX package always
+drops after fusion, which is `random_position=1`; it does not read the
+knob, and neither does the port).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from hybridneuralrendering_tpu_torch.config import AggregatorConfig
-from hybridneuralrendering_tpu_torch.models import feature_pyramid, mlp
+from hybridneuralrendering_tpu_torch.models import (attention,
+                                                   feature_pyramid, mlp)
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 
 
@@ -48,9 +50,6 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
     has_img = img_feat_n is not None or img_feat_staged is not None
     if not (cfg.use_nearest > 0 and has_img):
         return color_feature.new_zeros(color_feature.shape[:-1] + (aux_c,))
-    if cfg.tradition_attention:
-        raise NotImplementedError(
-            "attention fusion (tradition_attention) is not ported yet")
     chain_dt = torch.bfloat16 if cfg.pyramid_dtype == "bfloat16" else None
     if img_feat_staged is not None and cfg.staged_materialize:
         images_n, stages = img_feat_staged
@@ -82,22 +81,47 @@ def image_fusion(params: Dict, cfg: AggregatorConfig,
                                     fid)[..., :aux_c]
     img_feat = img_feat * valid[..., None].to(f32)
 
-    parts = [img_feat, color_feature[None]]
-    if cfg.use_delta_view:
-        parts.append(delta_viewdir_n)
-    layers = params["fusion_weight"]
-    h = mlp.mlp_apply_split(layers[:-1], parts, cfg.act_type, final_act=True,
-                            compute_dtype=compute_dtype)
-    head = layers[-1]
-    fusion_w = torch.sigmoid(h @ head["w"][:, 0] + head["b"][0])
-    fusion_w = fusion_w * valid.to(f32)                          # [V, R, SR]
-    if cfg.downweight_blurry_feats and frame_weight_n is not None:
-        fusion_w = fusion_w * frame_weight_n[:, None, None]
-    merged = torch.sum(img_feat * fusion_w[..., None], dim=0) / (
-        torch.sum(fusion_w, dim=0)[..., None] + 1e-6)
+    if cfg.tradition_attention:
+        merged = _attention_merge(params, cfg, color_feature, img_feat,
+                                  delta_viewdir_n, valid)
+    else:
+        parts = [img_feat, color_feature[None]]
+        if cfg.use_delta_view:
+            parts.append(delta_viewdir_n)
+        layers = params["fusion_weight"]
+        h = mlp.mlp_apply_split(layers[:-1], parts, cfg.act_type,
+                                final_act=True, compute_dtype=compute_dtype)
+        head = layers[-1]
+        fusion_w = torch.sigmoid(h @ head["w"][:, 0] + head["b"][0])
+        fusion_w = fusion_w * valid.to(f32)                      # [V, R, SR]
+        if cfg.downweight_blurry_feats and frame_weight_n is not None:
+            fusion_w = fusion_w * frame_weight_n[:, None, None]
+        merged = torch.sum(img_feat * fusion_w[..., None], dim=0) / (
+            torch.sum(fusion_w, dim=0)[..., None] + 1e-6)
     if drop_mask is not None:
         merged = merged * (1.0 - drop_mask[:, None, None].to(f32))
     return merged
+
+
+def _attention_merge(params: Dict, cfg: AggregatorConfig,
+                     color_feature: torch.Tensor, img_feat: torch.Tensor,
+                     delta_viewdir_n: Optional[torch.Tensor],
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The attention fusion (JAX fusion.py:79-94): the context [img_feat,
+    delta_viewdir] goes from [V, R, SR, C] to [R*SR, V, C], the colour
+    feature is the query, and the first aux_c channels of the fused
+    result are the merged feature [R, SR, aux_c].  JAX passes no key, so
+    the Gumbel selection is the hard one-hot in training too."""
+    V, R, SR = valid.shape
+    ctx = img_feat
+    if cfg.use_delta_view:
+        ctx = torch.cat([img_feat, delta_viewdir_n], dim=-1)
+    ctx_b = ctx.permute(1, 2, 0, 3).reshape(R * SR, V, ctx.shape[-1])
+    valid_b = valid.permute(1, 2, 0).reshape(R * SR, V)
+    fused = attention.apply(params["attention"],
+                            color_feature.reshape(R * SR, -1), ctx_b,
+                            valid=valid_b, use_gumbel=cfg.use_gumbel_softmax)
+    return fused.reshape(R, SR, -1)[..., :cfg.aux_feature_channels]
 
 
 def mixup(params: Dict, cfg: AggregatorConfig, color_feature: torch.Tensor,

@@ -75,7 +75,9 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     `noise` [R, z_depth_dim] in [0, 1) jitters the candidate samples and
     the rays of aggregator.drop_ray_mask lose their image features.
 
-    batch: 'campos' [3], 'camrotc2w' [3,3], 'raydir' [R,3], 'bg_color' [3];
+    batch: 'campos' [3], 'camrotc2w' [3,3], 'raydir' [R,3], 'bg_color' [3]
+    (or 'bg_ray' [R,3], the plane background of train/step.maybe_add_bg_ray,
+    which replaces it);
     the hybrid branch adds 'images_nearest' [V,H,W,3], 'c2w_nearest'
     [V,4,4], 'campos_nearest' [V,3], 'intrinsic_nearest' [3,3] and
     optionally 'frame_weight_nearest' [V] and 'view_mask' [V].
@@ -86,9 +88,6 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     when stage maps are given or cfg.agg.dedup_uncached is set, as in
     JAX renderer.py:87-93.  `prob` adds the point-growing outputs
     (prob_outputs)."""
-    if "bg_ray" in batch:
-        raise NotImplementedError("plane backgrounds (bg_ray) are not "
-                                  "ported yet")
     acfg, qcfg, rcfg = cfg.agg, cfg.querier, cfg.render
     campos, raydir = batch["campos"], batch["raydir"]
     R = raydir.shape[0]
@@ -150,11 +149,18 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         bg_color = batch.get("bg_color")
         if bg_color is None:
             bg_color = torch.tensor(rcfg.bg_color, device=raydir.device)
+        bg_ray = batch.get("bg_ray")
+        if bg_ray is not None:
+            # the plane background: no constant background in the march,
+            # the per-ray plane colour under the background transmission
+            bg_color = None
         (ray_color, _, opacity, _, blend_weight, bg_trans,
          _) = march.ray_march(
             ray_dist, out.ray_valid, out.features,
             march.RENDER_FUNCS[rcfg.which_render_func],
             march.BLEND_FUNCS[rcfg.which_blend_func], bg_color)
+        if bg_ray is not None:
+            ray_color = ray_color + bg_trans * bg_ray
         ray_color = march.TONEMAP_FUNCS[rcfg.which_tonemap_func](ray_color)
     output = {
         "coarse_raycolor": ray_color,              # [R, 3]

@@ -398,12 +398,30 @@ def chain_dtype(cfg: AggregatorConfig) -> str:
     compute_dtype when that is bfloat16, else float32.  JAX's
     compute_dtype chain rounds each product's operands to bf16 and keeps
     its sums, biases and activations in float32, which is how the bf16
-    kernels round (only its single-Linear alpha head stays float32 there:
-    a bf16-sized difference of one output)."""
+    kernels round; only its single-Linear alpha head stays float32 there
+    (alpha_head_is_f32)."""
     for name in (cfg.shading_dtype, cfg.compute_dtype):
         if _dtype_name(name) == "bfloat16":
             return name
     return "float32"
+
+
+def alpha_head_is_f32(params: Dict, cfg: AggregatorConfig) -> bool:
+    """True where JAX computes the chain's alpha head in float32 while the
+    chain itself is bf16: compute_dtype bfloat16, shading_dtype float32
+    and a single-Linear head (JAX aggregator.py:422-424 applies it as an
+    f32 einsum outside the layers that round to compute_dtype)."""
+    return (chain_dtype(cfg) == "bfloat16"
+            and cfg.shading_dtype != "bfloat16"
+            and len(params["alpha"]) == 1)
+
+
+def alpha_head_f32(feat: torch.Tensor, head: Dict) -> torch.Tensor:
+    """alpha_raw [N, 1] = feat @ w + b in float32: the single-Linear head
+    of alpha_head_is_f32, a plain matvec as JAX's einsum; autograd gives
+    dfeat = dalpha w^T, dW = feat^T dalpha and db = sum dalpha, all in
+    float32."""
+    return feat.float() @ head["w"].float() + head["b"].float()
 
 
 def chain_plain(emb: torch.Tensor, dists: torch.Tensor, extra: torch.Tensor,
@@ -714,15 +732,20 @@ def fused_feat_alpha(params: Dict, cfg: AggregatorConfig, emb: torch.Tensor,
     ({"block1", ["block2"], "block3", "alpha"}) on emb [N, de], dists
     [N, dd] (encoded inside with abs(cfg.dist_xyz_freq) bands, raw when 0)
     and extra [N, ce] (block3's concat tail; ce may be 0), computed in
-    chain_dtype(cfg).  On the card `packed` (pack_for of the same params)
-    lets several calls share one pack; without it the weights are packed
-    here."""
+    chain_dtype(cfg), the alpha head in float32 where alpha_head_is_f32 says
+    so.  On the card `packed` (pack_for of the same params) lets several
+    calls share one pack; without it the weights are packed here."""
     if packed is None and emb.is_cuda:
         packed = pack_for(params, cfg, emb.shape[1], dists.shape[1],
                           extra.shape[1])
     leaves = [x for layer in _layer_list(params)
               for x in (layer["w"], layer["b"])]
     shape_only = nest_like(params, [None] * (len(leaves) // 2))
-    return FusedFeatAlpha.apply(
+    feat, alpha = FusedFeatAlpha.apply(
         shape_only, cfg, packed, emb.float().contiguous(),
         dists.float().contiguous(), extra.float().contiguous(), *leaves)
+    if alpha_head_is_f32(params, cfg):
+        # the kernels' bf16-operand alpha is dropped (its cotangent is
+        # zero, so the kernels' head gradient is too) for JAX's f32 head
+        alpha = alpha_head_f32(feat, params["alpha"][0])
+    return feat, alpha

@@ -25,7 +25,10 @@ from hybridneuralrendering_tpu_torch.device import device_batch, no_tf32
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.models import renderer
 from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
+from hybridneuralrendering_tpu_torch.train.step import maybe_add_bg_ray
 
+# the request's per-ray keys, cut into the chunks with the rays
+PER_RAY = ("raydir", "bg_ray")
 # per-ray outputs of renderer.render that a request returns
 RAY_OUTPUTS = ("coarse_raycolor", "coarse_is_background", "ray_mask",
                "coarse_point_opacity")
@@ -47,9 +50,9 @@ def eval_step(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
 @torch.inference_mode()
 def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
                 request: Dict, cfg: Config, prob: bool = False) -> Dict:
-    """Render every ray of `request` in chunks of cfg.sampling.eval_rays.
-    Returns RAY_OUTPUTS (and PROB_OUTPUTS with `prob`) concatenated over
-    the request's rays."""
+    """Render every ray of `request` in chunks of cfg.sampling.eval_rays
+    (its PER_RAY keys cut with the rays).  Returns RAY_OUTPUTS (and
+    PROB_OUTPUTS with `prob`) concatenated over the request's rays."""
     raydir = request["raydir"]
     chunk = cfg.sampling.eval_rays
     keys = RAY_OUTPUTS + (PROB_OUTPUTS if prob else ())
@@ -60,7 +63,8 @@ def render_rays(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             img_feat_n = renderer.compute_image_features(
                 params, cfg, request["images_nearest"])
         for start in range(0, raydir.shape[0], chunk):
-            batch = dict(request, raydir=raydir[start:start + chunk])
+            batch = dict(request, **{k: request[k][start:start + chunk]
+                                     for k in PER_RAY if k in request})
             out = renderer.render(params, points, grid, batch, cfg,
                                   img_feat_n=img_feat_n, prob=prob)
             for k in keys:
@@ -80,12 +84,11 @@ def render_full_frame(params: Dict, points: npts.NeuralPoints,
     pyramid runs once a frame.  The JAX CLI pads its last chunk to the
     full chunk by repeating the last pixel and runs the pyramid in every
     chunk; neither changes a valid pixel.  Here the last chunk is ragged:
-    12,288 of 16,384 rays at 480x640."""
-    if cfg.render.bgmodel.endswith("plane"):
-        raise NotImplementedError("plane backgrounds (bg_ray) are not "
-                                  "ported yet")
+    12,288 of 16,384 rays at 480x640.  A plane background's keys, where
+    the batch has them, become its `bg_ray` (step.maybe_add_bg_ray, as
+    JAX's render_full_frame does per chunk); no dataset supplies them."""
     H, W = cfg.image_hw
-    request = device_batch(batch, device)
+    request = maybe_add_bg_ray(device_batch(batch, device), points, cfg)
     if request["raydir"].shape[0] != H * W:
         raise ValueError(f"a frame of {H}x{W} has {H * W} rays, the batch "
                          f"{request['raydir'].shape[0]}")

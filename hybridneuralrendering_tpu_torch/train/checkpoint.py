@@ -6,9 +6,11 @@
 `opt_state_net` and `opt_state_pts` optax's `(ScaleByAdamState,
 ScaleByScheduleState)` tuple as `0/count`, `0/mu/<path>`, `0/nu/<path>`
 and `1/count`, and `__best_psnr__` (float64).  A list in the parameter tree
-is keyed by its index.  The point Adam's moments are the table's
-(`0/mu/table`); optax keeps one schedule count beside each Adam, which
-counts the same updates, so the port writes the Adam's count there.
+is keyed by its index; an int leaf (attention's num_heads) is saved as
+JAX saves it, the value under `params/` and int32 zeros in the moments.
+The point Adam's moments are the table's (`0/mu/table`); optax keeps one
+schedule count beside each Adam, which counts the same updates, so the
+port writes the Adam's count there.
 
 Files of the round-2 layout keep the point attributes and their moments
 per attribute (`points/{xyz,embedding,conf,color,dirs}`); they are stacked
@@ -63,7 +65,12 @@ def _adam_keys(prefix: str, adam: Optional[state_mod.AdamState],
            f"{prefix}/1/count": _count(count)}
     if adam is not None:
         for name, m in (("mu", adam.mu), ("nu", adam.nu)):
-            _flat({"table": m} if table else m, f"{prefix}/0/{name}/", out)
+            moments = _flat({"table": m} if table else m,
+                            f"{prefix}/0/{name}/", {})
+            # an int leaf of the parameters (num_heads) has the int32 zero
+            # that optax's zeros_like gives it
+            out.update({k: v if torch.is_tensor(v) else _count(0)
+                        for k, v in moments.items()})
     return out
 
 
@@ -122,13 +129,14 @@ def _template(cfg: Config) -> Dict[str, Tuple[int, ...]]:
     width = npts.table_width(cfg.points.feature_dim)
     cap = cfg.points.num_points
     shapes = {"step": ()}
-    shapes.update({k: tuple(v.shape)
-                   for k, v in _flat(params, "params/", {}).items()})
+    leaves = {k: tuple(v.shape) if torch.is_tensor(v) else ()
+              for k, v in _flat(params, "", {}).items()}
+    shapes.update({f"params/{k}": v for k, v in leaves.items()})
     shapes.update({"points/table": (cap, width), "points/mask": (cap,),
                    "points/num_live": ()})
-    for k, v in _flat(params, "", {}).items():
-        shapes[f"opt_state_net/0/mu/{k}"] = tuple(v.shape)
-        shapes[f"opt_state_net/0/nu/{k}"] = tuple(v.shape)
+    for k, v in leaves.items():
+        shapes[f"opt_state_net/0/mu/{k}"] = v
+        shapes[f"opt_state_net/0/nu/{k}"] = v
     if any(_trainable(cfg)):
         shapes["opt_state_pts/0/mu/table"] = (cap, width)
         shapes["opt_state_pts/0/nu/table"] = (cap, width)
@@ -202,13 +210,16 @@ def _tensor(arr: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
 def _unflat(flat: Dict[str, np.ndarray], prefix: str, like: Any,
             dev: torch.device) -> Any:
     """The float32 tensors under `prefix` nested as `like` (dicts and
-    lists)."""
+    lists); where `like` has an int leaf (num_heads), the file's value as
+    an int."""
     if isinstance(like, dict):
         return {k: _unflat(flat, f"{prefix}{k}/", v, dev)
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
         return [_unflat(flat, f"{prefix}{i}/", v, dev)
                 for i, v in enumerate(like)]
+    if not torch.is_tensor(like):
+        return int(flat[prefix.rstrip("/")])
     return _tensor(flat[prefix.rstrip("/")], np.float32, dev)
 
 

@@ -21,17 +21,22 @@ from hybridneuralrendering_tpu_torch.models import neural_points as npts
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """fn over the tensors of nested dicts and lists, keeping the nesting."""
+    """fn over the tensors of nested dicts and lists, keeping the nesting.
+    A leaf that is not a tensor (attention's int num_heads) is kept as it
+    is, as the static part of the tree."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
+    if not torch.is_tensor(tree):
+        return tree
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
+    """The tensors of a tree, in tree_map's order."""
     out = []
     tree_map(out.append, tree)
     return out

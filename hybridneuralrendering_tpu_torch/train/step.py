@@ -31,6 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from hybridneuralrendering_tpu_torch.config import Config
+from hybridneuralrendering_tpu_torch.core import bg_plane
 from hybridneuralrendering_tpu_torch.device import HOST_KEYS, no_tf32
 from hybridneuralrendering_tpu_torch.models import blur as blur_mod
 from hybridneuralrendering_tpu_torch.models import losses as losses_mod
@@ -41,9 +42,6 @@ from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
 from hybridneuralrendering_tpu_torch.train.state import (
     TrainState, lr_schedule, tree_leaves, tree_map)
 
-# the ROADMAP item that ports plane backgrounds
-PLANE_ITEM = "ROADMAP Queue 1 item 10"
-
 
 def device_batch(batch: Dict) -> Dict:
     """The batch without its host-only keys (frame and view ids)."""
@@ -52,15 +50,29 @@ def device_batch(batch: Dict) -> Dict:
 
 def maybe_add_bg_ray(batch: Dict, points: npts.NeuralPoints,
                      cfg: Config) -> Dict:
-    """The plane-background preprocessing of JAX step.maybe_add_bg_ray:
-    the batch unchanged unless render.bgmodel ends with 'plane' and the
-    batch carries the plane keys and the nearest views; that case is not
-    ported and raises NotImplementedError."""
+    """The plane-background preprocessing (JAX step.maybe_add_bg_ray;
+    reference run/train_ft.py:972-980): when render.bgmodel ends with
+    'plane' and the batch carries the plane keys and the nearest views,
+    the plane keys give way to a per-ray `bg_ray` [R, 3] on the points'
+    device (core/bg_plane.compute_bg_ray), which the renderer composites
+    under the background transmission.  Otherwise the batch unchanged.
+    Leaves may be numpy arrays (a host batch) or tensors."""
     if (not cfg.render.bgmodel.endswith("plane")
             or "plane_pnt" not in batch or "images_nearest" not in batch):
         return batch
-    raise NotImplementedError(f"plane backgrounds (bg_ray) are not ported "
-                              f"yet ({PLANE_ITEM})")
+    dev = points.xyz.device
+
+    def t(k):
+        return torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+
+    bg = bg_plane.compute_bg_ray(
+        t("campos"), t("raydir"), t("plane_pnt"), t("plane_normal"),
+        t("plane_color"), t("images_nearest"),
+        torch.linalg.inv(t("c2w_nearest")), t("intrinsic_nearest"),
+        points.xyz, points.mask)
+    out = {k: v for k, v in batch.items() if not k.startswith("plane_")}
+    out["bg_ray"] = bg
+    return out
 
 
 def forward_with_blur(params: Dict, points: npts.NeuralPoints,

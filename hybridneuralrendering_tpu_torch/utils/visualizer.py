@@ -1,10 +1,11 @@
 """Run log and artefacts (JAX: hybridneuralrendering_tpu/utils/visualizer.py).
 
 An append-only log.txt, accumulated loss means with their PSNR, a
-`scalars.jsonl` stream and PNG dumps under `<out_dir>/<name>/images/`: the
-reference's layout.  PNGs go through io/png.py.  Videos (gen_video) and
-point dumps (save_neural_points, whose only JAX caller is cli/edit) come
-with the render_vid and edit slices.
+`scalars.jsonl` stream, PNG dumps under `<out_dir>/<name>/images/` and a
+video of them: the reference's layout.  PNGs go through io/png.py; the
+video needs `imageio` (imported where it is used, as in the JAX package).
+Point dumps (save_neural_points, whose only JAX caller is cli/edit) come
+with the edit slice.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -75,3 +76,28 @@ class Visualizer:
         path = os.path.join(self.img_dir, f"step-{step:04d}-{name}.png")
         png.write(path, to8b(img))
         return path
+
+    def gen_video(self, pattern_dir: Optional[str] = None, fps: int = 20,
+                  out_name: str = "video.mp4") -> Optional[str]:
+        """The PNGs of `pattern_dir` (default the images dir), in name
+        order, as a video beside them: mp4 where imageio can write one
+        (ffmpeg), else a GIF of 1000 / fps ms a frame, as JAX's gen_video.
+        Returns its path, or None without frames.  Raises
+        ModuleNotFoundError where imageio is not installed."""
+        import imageio.v2 as imageio
+        d = pattern_dir or self.img_dir
+        frames = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        if not frames:
+            return None
+        path = os.path.join(self.dir, out_name)
+        try:
+            with imageio.get_writer(path, fps=fps) as w:
+                for f in frames:
+                    w.append_data(png.read(os.path.join(d, f)))
+            return path
+        except Exception:
+            path = os.path.splitext(path)[0] + ".gif"
+            with imageio.get_writer(path, duration=1000.0 / fps) as w:
+                for f in frames:
+                    w.append_data(png.read(os.path.join(d, f)))
+            return path

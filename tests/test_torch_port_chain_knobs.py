@@ -16,8 +16,9 @@ Tolerances:
   bf16 alike and the f32 products differ only in order (rtol 1e-5); a bf16
   conv's rounded output may differ by one bf16 step, 2**-8 relative; the
   aggregator's outputs within a relative L2 error of 2**-8 (sound 1.2e-3
-  and below: the fused chain's single-Linear alpha head rounds its
-  operands, where JAX's compute_dtype chain keeps it float32).
+  and below before the chain's single-Linear alpha head was computed in
+  float32 as JAX's is; that head is held to 1e-6 in
+  tests/test_torch_port_knobs_step.py).
 """
 
 import dataclasses

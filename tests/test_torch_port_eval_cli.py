@@ -17,6 +17,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 import os
 import re
 import shutil
@@ -185,11 +186,14 @@ def test_render_full_frame_equals_render_rays(clis):
     b = tscannet.device_batch(ds.get_batch(1), "cpu")
     ref = serve.render_rays(st.params, st.points, grid, b, tc)
     assert torch.equal(img, ref["coarse_raycolor"].reshape(48, 64, 3))
-    with pytest.raises(NotImplementedError, match="plane"):
-        serve.render_full_frame(
-            st.params, st.points, grid, ds.get_batch(1),
-            tc.replace(render=TC.RenderConfig(bgmodel="img_plane")),
-            device="cpu")
+    # a plane preset renders unchanged where the batch has no plane keys,
+    # as JAX's render_full_frame (no dataset supplies them)
+    plane = serve.render_full_frame(
+        st.params, st.points, grid, ds.get_batch(1),
+        tc.replace(render=dataclasses.replace(tc.render,
+                                              bgmodel="img_plane")),
+        device="cpu")
+    assert torch.equal(plane, img)
 
 
 def test_entry_points_default_to_the_card(clis):
@@ -204,22 +208,51 @@ def test_entry_points_default_to_the_card(clis):
         serve.render_full_frame(None, None, None, ds.get_batch(0), tc)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--preset", "tiny_attention"], "tradition_attention")])
-def test_cli_refuses_unported(clis, flags, match, monkeypatch, tmp_path):
-    """A preset with a knob of ROADMAP Queue 1 item 10 (attention fusion)
-    is refused with NotImplementedError naming the knob, when the
-    checkpoint's parameters are laid out."""
-    outs, (root, scan) = clis
-    monkeypatch.setitem(TC.PRESETS, "tiny_attention", lambda: TC.tiny_test(
-    ).replace(agg=dataclasses.replace(TC.tiny_test().agg,
-                                      tradition_attention=True)))
-    shutil.copytree(os.path.join(os.path.dirname(outs["port"][0]), "tiny",
-                                 "ckpt"), tmp_path / "tiny" / "ckpt")
-    argv = ["--preset", "tiny", "--data-root", root, "--scan", scan,
-            "--checkpoints-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv + flags)
+def _attention_preset(pkg):
+    cfg = pkg.tiny_test()
+    return cfg.replace(agg=dataclasses.replace(cfg.agg,
+                                               tradition_attention=True))
+
+
+def test_cli_attention_preset_matches_jax(clis, monkeypatch, tmp_path):
+    """cli.test on a preset with attention fusion (ROADMAP Queue 1 item
+    10; the port refused it before) against JAX's cli.test on one
+    JAX-saved checkpoint: scores.txt within SCORES_RTOL, the frame's PNG
+    within 1 level.  JAX's jitted eval_step cannot trace attention's int
+    num_heads leaf (a ConcretizationTypeError), so JAX's CLI runs here
+    with eval_step un-jitted."""
+    _, (root, scan) = clis
+    for pkg in (JC, TC):
+        monkeypatch.setitem(pkg.PRESETS, "tiny_attention",
+                            functools.partial(_attention_preset, pkg))
+    monkeypatch.setattr(jstep, "eval_step", jstep.eval_step.__wrapped__)
+    jc = _attention_preset(JC)
+    a = _wall_points(1500)
+    pts = jnpts.init_from_arrays(a["xyz"], jc.points,
+                                 embedding=a["embedding"], conf=a["conf"],
+                                 color=a["color"], dirs=a["dirs"])
+    tree = numpy_params(lambda k: jrenderer.init_params(k, jc))
+    tree["aggregator"]["alpha"][-1]["b"] += np.float32(3.0)
+    tree["aggregator"]["attention"]["proj"]["w"] = np.random.default_rng(
+        3).normal(0, 0.3, (16, 48)).astype(np.float32)
+    ts = jstate.create_train_state(
+        jax.tree_util.tree_map(jnp.asarray, tree), pts, jc)
+    out = {}
+    for label, main in (("jax", jcli.main), ("port", tcli.main)):
+        ck = tmp_path / label
+        jck.save_checkpoint(str(ck / "tiny" / "ckpt"), ts, best_psnr=1.0)
+        argv = ["--preset", "tiny_attention", "--data-root", root, "--scan",
+                scan, "--checkpoints-dir", str(ck), "--num-frames", "1",
+                "--eval-chunk", str(CHUNK)]
+        main(argv + (["--device", "cpu"] if label == "port" else []))
+        out[label] = str(ck / "tiny_test")
+    want, got = _scores(out["jax"]), _scores(out["port"])
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=SCORES_RTOL), k
+    name = "images/step-0000-coarse_raycolor.png"
+    jimg = png.read(os.path.join(out["jax"], name)).astype(int)
+    timg = png.read(os.path.join(out["port"], name)).astype(int)
+    assert np.abs(jimg - timg).max() <= 1 and timg.std() > 5
 
 
 def test_run_config_snapshot_rules():

@@ -1192,3 +1192,102 @@ def test_compute_dtype_bf16_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(card[0][k].cpu(), v, rtol=1e-3, atol=1e-5)
     assert TSC.rel_l2(card[2].cpu(), cpu[2]) < TSC.tolerance("bfloat16",
                                                              "grad")
+
+
+def _knob_tiny(name):
+    """tiny_test with one knob of the aggregator's other model code (32
+    point features where the distance kernel consumes channels)."""
+    c = TC.tiny_test()
+    if name in ("sh_intrp", "gau_intrp"):
+        return c.replace(
+            points=dataclasses.replace(c.points, feature_dim=32),
+            agg=dataclasses.replace(c.agg, agg_distance_kernel=name,
+                                    point_features_dim=32))
+    return c.replace(agg=dataclasses.replace(
+        c.agg, tradition_attention=True,
+        use_gumbel_softmax=name == "attention_gumbel"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sh_intrp", "gau_intrp", "attention",
+                                  "attention_gumbel"])
+def test_knob_step_on_card_matches_cpu(cuda, name):
+    """One training step with the SH or Gaussian distance kernel or
+    attention fusion: the card's loss items and gradients against the
+    CPU's (float32 chains: items rtol 1e-4 / atol 1e-6, gradients rtol
+    1e-4 / atol 1e-5 * max|g|); the chain launches once forward and once
+    backward."""
+    cfg = _knob_tiny(name)
+    before = dict(TSC.LAUNCHES)
+    card = _grads_of_step(cfg, cuda)
+    torch.cuda.synchronize()
+    assert {k: TSC.LAUNCHES[k] - before[k] for k in before} == {
+        "shading_chain_fwd": 1, "shading_chain_bwd": 1,
+        "shading_chain_dw": 1}
+    cpu = _grads_of_step(cfg, torch.device("cpu"))
+    for k, v in cpu[0].items():
+        torch.testing.assert_close(card[0][k].cpu(), v, rtol=1e-4, atol=1e-6)
+    for got, ref in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
+                                   atol=float(1e-5 * ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_plane_background_on_card_matches_cpu(cuda):
+    """The plane background on the card: each view's foreground splat
+    against the CPU's (at most 1e-3 of the pixels may differ: points
+    within float32 rounding of a pixel's edge), and a request of three
+    chunks with its bg_ray equal to the CPU's render within 1e-5 on the
+    rays whose bg_ray agrees."""
+    from hybridneuralrendering_tpu_torch.core import bg_plane
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                 bgmodel="img_plane"),
+                      sampling=dataclasses.replace(cfg.sampling,
+                                                   eval_chunk_rays=64))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        b = synthetic.make_synthetic_batch(cfg, num_rays=160, device=dev)
+        b["images_nearest"] = torch.full_like(b["images_nearest"], 0.5)
+        b.update(plane_pnt=torch.tensor([0.0, 0.0, 2.5], device=dev),
+                 plane_normal=torch.tensor([0.0, 0.1, 1.0], device=dev),
+                 plane_color=torch.tensor([0.5, 0.5, 0.5], device=dev))
+        H, W = cfg.image_hw
+        fg = bg_plane.fg_pixel_mask(points.xyz, points.mask,
+                                    torch.linalg.inv(b["c2w_nearest"][0]),
+                                    b["intrinsic_nearest"], H, W)
+        req = tstep.maybe_add_bg_ray(b, points, cfg)
+        out[dev.type] = (fg.cpu(), req["bg_ray"].cpu(), serve.render_rays(
+            params, points, grid, req, cfg)["coarse_raycolor"].cpu())
+    (fg_d, bg_d, col_d), (fg_c, bg_c, col_c) = out["cuda"], out["cpu"]
+    assert (fg_d != fg_c).float().mean() <= 1e-3
+    same = (bg_d - bg_c).abs().max(-1).values <= 1e-5
+    assert same.float().mean() > 0.9 and bg_c.any()
+    torch.testing.assert_close(col_d[same], col_c[same], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_compute_dtype_alpha_head_on_card(cuda):
+    """compute_dtype = bfloat16 with shading_dtype float32: on the card the
+    chain's alpha is the float32 head of chain_fwd's feature (the bf16
+    kernels' own alpha dropped)."""
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(agg=dataclasses.replace(cfg.agg,
+                                              compute_dtype="bfloat16"))
+    params = renderer.init_params(cfg, seed=0, device=cuda)["aggregator"]
+    chain = {k: params[k] for k in ("block1", "block3", "alpha")}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    emb = torch.randn(4096, 8, generator=g, device=cuda)
+    dists = torch.randn(4096, 6, generator=g, device=cuda) * 0.05
+    extra = torch.randn(4096, 7, generator=g, device=cuda)
+    feat, alpha = TSC.fused_feat_alpha(chain, cfg.agg, emb, dists, extra)
+    assert torch.equal(alpha, TSC.alpha_head_f32(feat, chain["alpha"][0]))
+    cfeat, calpha = TSC.fused_feat_alpha(
+        tstate.tree_map(lambda t: t.cpu(), chain), cfg.agg, emb.cpu(),
+        dists.cpu(), extra.cpu())
+    assert TSC.rel_l2(feat.cpu(), cfeat) < TSC.tolerance("bfloat16", "feat")
+    assert TSC.rel_l2(alpha.cpu(), calpha) < TSC.tolerance("bfloat16",
+                                                           "alpha")

@@ -606,5 +606,19 @@ def test_maybe_add_bg_ray():
                                                   bgmodel="img_plane"))
     no_keys = {"raydir": np.zeros((4, 3))}
     assert tstep.maybe_add_bg_ray(no_keys, None, plane) is no_keys
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tstep.maybe_add_bg_ray(batch, None, plane)
+    # with the plane keys and the views: JAX's bg_ray (ported with ROADMAP
+    # Queue 1 item 10; more cases in tests/test_torch_port_knobs.py)
+    jc = configs()[0]
+    jplane = jc.replace(render=dataclasses.replace(jc.render,
+                                                   bgmodel="img_plane"))
+    (jpts, _), (tpts, _) = make_scene(jc, tc)
+    b = tsyn.batch_arrays(tc, seed=2, num_rays=64)
+    b["images_nearest"][:] = 0.5
+    b.update(plane_pnt=np.array([0.0, 0.0, 2.5], np.float32),
+             plane_normal=np.array([0.0, 0.0, 1.0], np.float32),
+             plane_color=np.array([0.5, 0.5, 0.5], np.float32))
+    want = jstep.maybe_add_bg_ray(b, jpts, jplane)
+    got = tstep.maybe_add_bg_ray(b, tpts, plane)
+    assert sorted(got) == sorted(want)
+    np.testing.assert_allclose(n(got["bg_ray"]), np.asarray(want["bg_ray"]),
+                               rtol=1e-5, atol=1e-5)

@@ -561,13 +561,12 @@ def test_drop_ray_mask_matches_jax():
                 jagg.drop_ray_mask(ja, R, pn, ps))
 
 
-@pytest.mark.parametrize("knob", [{"agg_distance_kernel": "sh_intrp"},
-                                  {"tradition_attention": True},
-                                  {"act_type": "relu"}])
+@pytest.mark.parametrize("knob", [{"act_type": "relu"}])
 def test_unported_training_knobs_raise(knob):
-    """The knobs of ROADMAP Queue 1 item 10, and a chain the fused kernels
-    do not take, raise in training (the chain's remat, chunk and fused-VJP
-    knobs run: tests/test_torch_port_chain_knobs.py)."""
+    """A chain the fused kernels do not take raises in training (the
+    chain's remat, chunk and fused-VJP knobs run:
+    tests/test_torch_port_chain_knobs.py; the distance kernels and
+    attention: test_training_knobs_match_jax)."""
     jc, tc = configs(**knob)
     tp = trenderer.init_params(configs()[1], device="cpu")
     kw = {k: torch.zeros(1) for k in (
@@ -577,6 +576,32 @@ def test_unported_training_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         tagg.apply(tp["aggregator"], tc.agg, vsize=(0.1,) * 3, train=True,
                    **kw)
+
+
+@pytest.mark.parametrize("knob", [
+    {"agg_distance_kernel": "sh_intrp", "point_features_dim": 32},
+    {"tradition_attention": True}], ids=["sh_intrp", "tradition_attention"])
+def test_training_knobs_match_jax(knob):
+    """The call the port refused before it ported ROADMAP Queue 1 item 10:
+    aggregator.apply in training with the SH distance kernel or attention
+    fusion, its features against JAX's (float32 rtol 1e-4 / atol 1e-5).
+    Every gradient: tests/test_torch_port_knobs.py."""
+    from test_torch_port_render import F32, _agg_inputs
+    jc, tc = configs(**knob)
+    if "point_features_dim" in knob:
+        jc, tc = (c.replace(points=dataclasses.replace(c.points,
+                                                       feature_dim=32))
+                  for c in (jc, tc))
+    jp, tp = make_params(jc, alpha_bias=ALPHA_BIAS)
+    a = _agg_inputs(tc)
+    a["drop_mask"] = np.arange(12) % 3 == 0
+    vs = tc.querier.query_vsize
+    want = jagg.apply(jp["aggregator"], jc.agg, vsize=vs, train=True,
+                      **{k: jnp.asarray(v) for k, v in a.items()})
+    got = tagg.apply(tp["aggregator"], tc.agg, vsize=vs, train=True,
+                     **{k: t(v) for k, v in a.items()})
+    np.testing.assert_allclose(n(got.features), np.asarray(want.features),
+                               **F32)
 
 
 def test_synthetic_batch_has_frame_weight():

@@ -80,11 +80,20 @@ def make_batch(tc, seed=1, num_rays=NUM_RAYS):
 
 def numpy_params(jax_init, seed=0):
     """Random numpy weights with the shapes `jax_init(key)` makes
-    (jax.eval_shape: no JAX compute), xavier-scaled per leaf."""
+    (jax.eval_shape: no JAX compute), xavier-scaled per leaf; an int leaf
+    keeps its value (then the initialiser runs once)."""
     shapes = jax.eval_shape(jax_init, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
+    if any(jnp.issubdtype(s.dtype, jnp.integer)
+           for s in jax.tree_util.tree_leaves(shapes)):
+        # an int leaf (attention's num_heads) keeps the initialiser's value
+        real = jax_init(jax.random.PRNGKey(0))
+        shapes = jax.tree_util.tree_map(
+            lambda s, r: r if isinstance(r, int) else s, shapes, real)
 
     def draw(s):
+        if isinstance(s, int):
+            return s
         if len(s.shape) == 1:
             return rng.uniform(-0.1, 0.1, s.shape).astype(np.float32)
         rf = int(np.prod(s.shape[:-2]))

@@ -130,6 +130,24 @@ Phases, each printing one JSON progress line:
                  train_cli_nerf, render_vid_nerf (8 orbit frames).  Without
                  imageio both video calls must end with ModuleNotFoundError
                  after their PNGs, as the JAX CLI's would.
+ 15. query_pers after serve_knobs, the frustum querier (ops/query_pers)
+                 on the serve scene from the requests' camera at vsize
+                 PERS_VSIZE: the frustum grid (two row scans), the 4
+                 requests (one K-min each), 1,024 rays' ids and masks
+                 equal to the CPU's.
+ 16. edit       inside eval_cli, cli.edit on its checkpoint: the scene
+                 whole and half its points turned 30 degrees and shifted
+                 (900,000 points, preset serve_edit: serve with the grid
+                 capacities of the merge), 8 orbit frames (per frame one
+                 K-min and one chain forward a chunk, two row scans for
+                 the merged grid), frame 1 against the CPU, the identity
+                 rw2c rejected, the video call as render_vid's.
+ 17. frame_weights inside eval_cli, RAFT with seeded weights saved as a
+                 reference-layout .pth: one 480x640 pair at one
+                 refinement against the CPU, 3 pairs at 12 timed, then
+                 cli.frame_weights on eval_cli's scene with RAFT and with
+                 identity flow (card = CPU bit for bit); no kernel of the
+                 port runs.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step, each with the blur bank and with
 the learnable kernel, and one more NeRF request and NeRF step, and prints
@@ -138,7 +156,8 @@ the kernels that took the most device time.
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
 the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli,
 train_cli, serve_nerf, train_nerf, train_cli_nerf, serve_knobs,
-render_vid, visualize and render_vid_nerf runs), the card as
+render_vid, visualize, render_vid_nerf, query_pers and edit runs), the
+card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -2083,6 +2102,8 @@ def phase_eval_cli(cfg, st, grid):
         # the path and preview drivers on the same scene and checkpoint
         more = [phase_render_vid(cfg, root, ck_root, st_c, grid_c),
                 phase_visualize(cfg, root, ck_root)]
+        del st_c, grid_c
+        more += [phase_edit(root, ck_root), phase_frame_weights(root)]
     log("eval_cli", frames=frames, scores=scores, launches=launches,
         ray_hit_share=sum(frames_hit) / len(frames_hit),
         mean_frame_ms=sum(f["ms"] for f in frames) / len(frames),
@@ -3287,13 +3308,16 @@ def phase_serve_knobs(cfg, points, grid, grid_c, requests, base_steady):
     return total
 
 
-def _frame_timer(frames, H, W):
+def _frame_timer(frames, H, W, scene=None):
     """A render_full_frame wrapper that times each frame to synchronize
-    and keeps its image."""
+    and keeps its image; `scene`, where given, gets the first frame's
+    params, points and grid."""
     import torch
 
     def make(real):
         def render_full_frame(*a, **kw):
+            if scene is not None and not scene:
+                scene.update(params=a[0], points=a[1], grid=a[2])
             t = time.perf_counter()
             img = real(*a, **kw)
             torch.cuda.synchronize()
@@ -3308,14 +3332,18 @@ def _frame_timer(frames, H, W):
     return make
 
 
-def _run_render_vid(argv, cfg, n_frames, grids=1):
-    """cli.render_vid.main(argv) on the card, each frame timed, launches
-    over the call; without imageio it must end with ModuleNotFoundError
-    naming it after all frame PNGs are written (as the JAX CLI), with it
-    the video must exist.  Returns (frames, launches, video, seconds)."""
+def _run_render_vid(argv, cfg, n_frames, grids=1, cli=None, scene=None):
+    """cli.main(argv) (cli.render_vid's, or another CLI that renders
+    through render_vid.render_pose_path: cli.edit's) on the card, each
+    frame timed, launches over the call; without imageio it must end with
+    ModuleNotFoundError naming it after all frame PNGs are written (as the
+    JAX CLI), with it the video must exist.  `scene` gets the rendered
+    params, points and grid (_frame_timer).  Returns (frames, launches,
+    video, seconds)."""
     import torch
     from hybridneuralrendering_tpu_torch import serve
     from hybridneuralrendering_tpu_torch.cli import render_vid
+    cli = cli or render_vid
     H, W = cfg.image_hw
     frames = []
     try:
@@ -3327,12 +3355,13 @@ def _run_render_vid(argv, cfg, n_frames, grids=1):
     reset_launches()
     t0 = time.perf_counter()
     video = None
-    with _Planted(serve, "render_full_frame", _frame_timer(frames, H, W)):
+    with _Planted(serve, "render_full_frame",
+                  _frame_timer(frames, H, W, scene)):
         try:
-            video = render_vid.main(argv)
+            video = cli.main(argv)
             if not has_imageio:
-                raise AssertionError("render_vid wrote a video without "
-                                     "imageio")
+                raise AssertionError(f"{cli.__name__} wrote a video "
+                                     "without imageio")
         except ModuleNotFoundError as e:
             if has_imageio or "imageio" not in str(e):
                 raise
@@ -3343,9 +3372,9 @@ def _run_render_vid(argv, cfg, n_frames, grids=1):
     want = _predicted_launches(cfg, launches, renders=n_frames * chunks,
                                grids=grids)
     if launches != want or len(frames) != n_frames:
-        raise AssertionError(f"render_vid: {len(frames)} frames, launched "
-                             f"{launches}, want {want}")
-    if has_imageio and not os.path.exists(video):
+        raise AssertionError(f"{cli.__name__}: {len(frames)} frames, "
+                             f"launched {launches}, want {want}")
+    if has_imageio and cli is render_vid and not os.path.exists(video):
         raise AssertionError(f"render_vid: no video at {video}")
     return frames, launches, video, seconds
 
@@ -3468,6 +3497,341 @@ def phase_render_vid_nerf(root, cfg):
     return launches
 
 
+# the edit phase: cli.edit on eval_cli's checkpoint, two parts: the whole
+# scene, and every second live point turned EDIT_ANGLE degrees about z
+# and shifted by EDIT_SHIFT (inside serve's ranges, +-3.2 m): 900,000
+# points, EDIT_FRAMES orbit frames at the CLI's default radius and phi.
+# The merge holds 779,258 occupied voxels and 6,551,458 supervoxel nodes
+# (a numpy census of the synthetic scene), past serve's max_o 610,000 and
+# max_nodes 4,000,000, over which both packages' grid builds drop voxels
+# silently; EDIT_PRESET is serve_config() with those two capacities
+# raised, every width unchanged.
+EDIT_PRESET = "serve_edit"
+EDIT_FRAMES = 8
+EDIT_ANGLE, EDIT_SHIFT = 30.0, (0.3, -0.2, 0.1)
+EDIT_MAX_O, EDIT_MAX_NODES = 1_000_000, 7_000_000
+EDIT_CHECK_RAYS = 1_024
+# the query_pers phase: the frustum querier on the serve scene from the
+# requests' camera, at serve's SR, K and z_depth_dim, with vsize (in x/z,
+# y/z and z units, times vscale 2) PERS_VSIZE: its grid is 351 x 264 x
+# 497 voxels, 46.2M z-padded of serve's 70M grid_capacity, with 187,406
+# points in the frustum, 165,491 occupied voxels and 1,482,512 supervoxel
+# nodes (numpy census), inside max_o and max_nodes
+PERS_VSIZE = (0.0016, 0.0016, 0.008)
+PERS_CHECK_RAYS = 1_024
+# the frame_weights phase: RAFT with seeded weights (flow/raft.init),
+# the flow head's last conv scaled by FLOW_HEAD_SCALE: random weights
+# move a frame by ~650 px after 12 refinements (by ~50 px after one),
+# past any frame, and the blur scores of an empty overlap are NaN; scaled,
+# the flows are a few pixels, as between neighbouring video frames
+FLOW_HEAD = "update_block.flow_head.conv2.weight"
+FLOW_HEAD_SCALE = 0.01
+# card against CPU at one refinement: float32 convolutions summed in
+# another order (tests/test_torch_port_flow.py's limit against JAX)
+FLOW_RTOL, FLOW_ATOL = 1e-3, 5e-2
+FLOW_PAIRS = 3
+
+
+def edit_config():
+    """serve_config() with the grid capacities of the 900,000-point
+    merge (EDIT_MAX_O, EDIT_MAX_NODES)."""
+    import dataclasses
+    from hybridneuralrendering_tpu_torch import config
+    cfg = config.serve_config()
+    return cfg.replace(querier=dataclasses.replace(
+        cfg.querier, max_o=EDIT_MAX_O, max_nodes=EDIT_MAX_NODES))
+
+
+def _edit_transform():
+    import numpy as np
+    a = math.radians(EDIT_ANGLE)
+    T = np.eye(4)
+    T[:3, :3] = [[math.cos(a), -math.sin(a), 0],
+                 [math.sin(a), math.cos(a), 0], [0, 0, 1]]
+    T[:3, 3] = EDIT_SHIFT
+    return T
+
+
+def phase_edit(root, ck_root):
+    """cli.edit on the card (EDIT_* constants): eval_cli's checkpoint
+    whole, and half its live points (an index file) moved by a rotating
+    transform; the 900,000-point merge's capacity rounded up to 900,096,
+    its grid built, its points dumped, EDIT_FRAMES whole 480x640 orbit
+    frames rendered (per frame one K-min and one chain forward a chunk,
+    two row scans for the merged grid), the video call handled as
+    render_vid's.  EDIT_CHECK_RAYS pixels of frame 1 again on the CPU,
+    from the same files through the port's load_part / merge_parts, must
+    agree within CHECK_TOL; the card's render of them with every rw2c the
+    identity (the planted fault: the moved part shaded in the world's
+    frame) must not."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import config, serve
+    from hybridneuralrendering_tpu_torch.cli import edit, render_vid
+    from hybridneuralrendering_tpu_torch.device import device_batch
+    from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+    from hybridneuralrendering_tpu_torch.train import checkpoint as ckpt
+    config.PRESETS[EDIT_PRESET] = edit_config
+    cfg = edit_config()
+    H, W = cfg.image_hw
+    ckpt_dir = os.path.join(ck_root, "synth_full", "ckpt")
+    with np.load(ckpt.latest_checkpoint(ckpt_dir)) as f:
+        live = np.nonzero(f["points/mask"])[0]
+    files = {k: os.path.join(root, f"edit_{k}.txt")
+             for k in ("all", "half", "id", "rot")}
+    np.savetxt(files["all"], live, fmt="%d")
+    np.savetxt(files["half"], live[::2], fmt="%d")
+    np.savetxt(files["id"], np.eye(4))
+    np.savetxt(files["rot"], _edit_transform())
+    argv = ["--preset", EDIT_PRESET, "--checkpoints-dir", ck_root,
+            "--parts", "synth_full", "synth_full", "--index-files",
+            files["all"], files["half"], "--transforms", files["id"],
+            files["rot"], "--out-name", "synth_edited", "--render-frames",
+            str(EDIT_FRAMES), "--device", DEVICE]
+    scene = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frames, launches, video, seconds = _run_render_vid(
+        argv, cfg, EDIT_FRAMES, cli=edit, scene=scene)
+    peak = torch.cuda.max_memory_allocated()
+    out_dir = os.path.join(ck_root, "synth_edited")
+    if not isinstance(video, str):
+        video = sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("video."))
+    points, grid = scene["points"], scene["grid"]
+    n_merged = len(live) + len(live[::2])
+    pngs = sorted(os.listdir(os.path.join(out_dir, "images")))
+    with open(os.path.join(out_dir, "points", "step-0.txt"), "rb") as f:
+        dumped = sum(buf.count(b"\n") for buf in iter(
+            lambda: f.read(1 << 24), b""))
+    if (points.num_live != n_merged or dumped != n_merged
+            or points.capacity != -(-n_merged // 1024) * 1024
+            or points.rw2c is None
+            or pngs != [f"step-{i:04d}-edited.png"
+                        for i in range(EDIT_FRAMES)]):
+        raise AssertionError(f"edit: {points.num_live} points of "
+                             f"{n_merged}, capacity {points.capacity}, "
+                             f"{dumped} dumped, PNGs {pngs}")
+
+    # frame 1's pixels on the CPU from the same files
+    t0 = time.perf_counter()
+    parts, params_c = [], None
+    for idx, trf in ((files["all"], files["id"]),
+                     (files["half"], files["rot"])):
+        p, attrs = edit.load_part(ckpt_dir, cfg, idx, trf, device="cpu")
+        params_c = params_c or p
+        parts.append(attrs)
+    pts_c = edit.merge_parts(parts, cfg, device="cpu")
+    grid_c = VG.grid_of(pts_c.xyz, pts_c.mask, cfg.querier)
+    xyz = pts_c.xyz.numpy()[pts_c.mask.numpy()]
+    poses = edit.orbit_poses(xyz.mean(axis=0), EDIT_FRAMES, -25.0, 3.0)
+    pick = np.linspace(0, H * W - 1, EDIT_CHECK_RAYS).astype(np.int64)
+    pix = np.stack([pick % W, pick // W], -1).astype(np.float32)[:, None]
+    b = render_vid.PathView(edit.OrbitBase(cfg), poses).get_batch(
+        1, pixelcoords=pix)
+    ref = serve.render_rays(params_c, pts_c, grid_c, device_batch(b, "cpu"),
+                            cfg)
+    card = frames[1]["img"].reshape(-1, 3).cpu()[torch.as_tensor(pick)]
+    err = float((card - ref["coarse_raycolor"]).abs().max())
+    eye = torch.eye(3, device=points.table.device).expand(
+        points.capacity, 3, 3)
+    wrong = serve.render_rays(scene["params"],
+                              dataclasses.replace(points, rw2c=eye),
+                              grid, device_batch(b, DEVICE), cfg)
+    fault = float((wrong["coarse_raycolor"].cpu()
+                   - ref["coarse_raycolor"]).abs().max())
+    check_s = time.perf_counter() - t0
+    log("edit", frames=[{k: v for k, v in f.items() if k != "img"}
+                        for f in frames],
+        mean_frame_ms=sum(f["ms"] for f in frames) / len(frames),
+        launches=launches, seconds=seconds, video=video,
+        points=points.num_live, capacity=points.capacity,
+        occupied_voxels=int(grid.num_occ), max_o=cfg.querier.max_o,
+        supervoxel_nodes=int(grid.num_nodes),
+        max_nodes=cfg.querier.max_nodes, max_memory_allocated=peak,
+        check_rays=EDIT_CHECK_RAYS,
+        ray_hit_share=float(ref["ray_mask"].float().mean()),
+        check_max_abs_err=err, check_tolerance=CHECK_TOL,
+        fault_identity_rw2c_max_abs_err=fault, check_seconds=check_s)
+    if err > CHECK_TOL:
+        raise AssertionError(f"edit frame 1: card and CPU differ {err}")
+    if fault <= CHECK_TOL:
+        raise AssertionError(f"edit: identity rw2c passed the check "
+                             f"({fault})")
+    return launches
+
+
+def phase_query_pers(cfg, points, requests):
+    """ops/query_pers on the card (PERS_* constants): the serve scene's
+    frustum grid from the requests' camera (two row scans), then the
+    NUM_REQUESTS requests through query_points_pers (one K-min each),
+    timed; PERS_CHECK_RAYS rays of request 0 again on the CPU from the
+    same points: grid tables, ids and masks equal, locations within
+    1e-5."""
+    import dataclasses
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    from hybridneuralrendering_tpu_torch.ops import query_pers as QP
+    qcfg = dataclasses.replace(cfg.querier, vsize=PERS_VSIZE)
+    H, W = cfg.image_hw
+    near, far = cfg.render.near_plane, cfg.render.far_plane
+    intr = synthetic.intrinsic(H, W)
+    cam = requests[0]
+    if not all(torch.equal(r["campos"], cam["campos"])
+               and torch.equal(r["camrotc2w"], cam["camrotc2w"])
+               for r in requests):
+        raise AssertionError("query_pers: the requests' cameras differ")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    geom = QP.frustum_geometry(intr, H, W, near, far, qcfg, device=DEVICE)
+    grid = QP.build_frustum_grid(points.xyz, points.mask, cam["camrotc2w"],
+                                 cam["campos"], geom, qcfg)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    outs, ms = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(QP.query_points_pers(
+            grid, points.xyz, req["camrotc2w"], req["campos"],
+            req["raydir"], qcfg, near, far))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want.update(k_smallest=len(requests), cumsum_rows=2)
+    if launches != want:
+        raise AssertionError(f"query_pers launched {launches}, want {want}")
+    hit = float(torch.cat([o.ray_mask for o in outs]).float().mean())
+
+    t0 = time.perf_counter()
+    pts_c = cpu(points)
+    cam_c = {k: v.cpu() for k, v in cam.items()}
+    geom_c = QP.frustum_geometry(intr, H, W, near, far, qcfg, device="cpu")
+    grid_c = QP.build_frustum_grid(pts_c.xyz, pts_c.mask,
+                                   cam_c["camrotc2w"], cam_c["campos"],
+                                   geom_c, qcfg)
+    ref = QP.query_points_pers(grid_c, pts_c.xyz, cam_c["camrotc2w"],
+                               cam_c["campos"],
+                               cam_c["raydir"][:PERS_CHECK_RAYS], qcfg,
+                               near, far)
+    differ = [k for k in ("coor2occ", "occ_pnts", "coor2node", "occ_bits",
+                          "num_occ", "num_nodes")
+              if not torch.equal(getattr(grid, k).cpu(), getattr(grid_c, k))]
+    differ += [k for k in ("sample_pidx", "sample_mask", "pnt_mask",
+                           "ray_mask")
+               if not torch.equal(getattr(outs[0], k)[:PERS_CHECK_RAYS]
+                                  .cpu(), getattr(ref, k))]
+    loc_err = float((outs[0].sample_loc_w[:PERS_CHECK_RAYS].cpu()
+                     - ref.sample_loc_w).abs().max())
+    check_s = time.perf_counter() - t0
+    log("query_pers", vsize=PERS_VSIZE, query_vsize=qcfg.query_vsize,
+        dims=geom.dims, voxels=geom.dims[0] * geom.dims[1]
+        * (geom.dims[2] + 2), grid_capacity=qcfg.grid_capacity,
+        occupied_voxels=int(grid.num_occ), max_o=qcfg.max_o,
+        supervoxel_nodes=int(grid.num_nodes), max_nodes=qcfg.max_nodes,
+        build_ms=build_ms, request_ms=ms, rays=RAYS_PER_REQUEST,
+        SR=qcfg.SR, K=qcfg.K, z_depth_dim=qcfg.z_depth_dim,
+        launches=launches, ray_hit_share=hit, max_memory_allocated=peak,
+        check_rays=PERS_CHECK_RAYS, check_differ=differ,
+        check_sample_loc_max_abs_err=loc_err, check_seconds=check_s)
+    if hit <= 0:
+        raise AssertionError("query_pers: no ray found a neighbour")
+    if differ or loc_err > 1e-5 * float(
+            ref.sample_loc_w.abs().max()):
+        raise AssertionError(f"query_pers: card and CPU differ in {differ}"
+                             f", locations by {loc_err}")
+    return launches
+
+
+def phase_frame_weights(root):
+    """RAFT and the frame-weight CLI on the card (FLOW_* constants):
+    seeded weights saved as a reference-layout .pth and loaded through
+    io/torch_import on the card and on the CPU; one 480x640 pair at one
+    refinement, card against CPU within FLOW_RTOL / FLOW_ATOL; FLOW_PAIRS
+    pairs at 12 refinements timed (ms a pair, peak), finite; then
+    cli.frame_weights --raft-ckpt on eval_cli's scene (one finite weight
+    a training frame) and without it (identity flow) on the card and on
+    the CPU, bit-equal.  None of the port's kernels runs."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch.cli import frame_weights as fw_cli
+    from hybridneuralrendering_tpu_torch.data import scannet
+    from hybridneuralrendering_tpu_torch.flow import raft
+    from hybridneuralrendering_tpu_torch.io import torch_import as TI
+    from hybridneuralrendering_tpu_torch import config
+    cfg = config.serve_config()
+    H, W = cfg.image_hw
+    sd = raft.init(seed=0, device="cpu").state_dict()
+    sd[FLOW_HEAD] *= FLOW_HEAD_SCALE
+    path = os.path.join(root, "raft-seeded.pth")
+    torch.save({"module." + k: v for k, v in sd.items()}, path)
+    reset_launches()
+    card, host = TI.load_raft(path, DEVICE), TI.load_raft(path, "cpu")
+    rng = np.random.default_rng(0)
+    im1 = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    im2 = np.roll(im1, (2, 5), axis=(0, 1))
+    a, b = torch.as_tensor(im1), torch.as_tensor(im2)
+    t0 = time.perf_counter()
+    f_card = raft.estimate_flow(card, a.to(DEVICE), b.to(DEVICE), 1).cpu()
+    f_cpu = raft.estimate_flow(host, a, b, 1)
+    one_s = time.perf_counter() - t0
+    excess = float(((f_card - f_cpu).abs()
+                    - FLOW_RTOL * f_cpu.abs()).max())
+    one_err = float((f_card - f_cpu).abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = a.to(DEVICE), b.to(DEVICE)
+    raft.estimate_flow(card, a, b, 12)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(FLOW_PAIRS):
+        t0 = time.perf_counter()
+        flow = raft.estimate_flow(card, a, b, 12)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(flow).all())
+    mean_px = float(flow.abs().mean())
+
+    t0 = time.perf_counter()
+    outs = {}
+    for label, extra in (("raft", ["--raft-ckpt", path, "--device", DEVICE]),
+                         ("identity_card", ["--device", DEVICE]),
+                         ("identity_cpu", ["--device", "cpu"])):
+        out = fw_cli.main(["--data-root", root, "--scan", "synth",
+                           "--preset", "serve", "--out",
+                           os.path.join(root, "fw_" + label)] + extra)
+        outs[label] = np.load(out)
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    n_train = len(scannet.ScannetScene(root, "synth", cfg,
+                                       "train").train_id_list)
+    log("frame_weights", pair_ms=ms, hw=[H, W], iters=12,
+        max_memory_allocated=peak, flow_finite=finite,
+        flow_mean_abs_px=mean_px, one_iteration_max_abs_err=one_err,
+        one_iteration_excess_over_rtol=excess, rtol=FLOW_RTOL,
+        atol=FLOW_ATOL, one_iteration_seconds=one_s,
+        weights={k: v.tolist() for k, v in outs.items()},
+        train_frames=n_train, cli_seconds=cli_s, launches=launches)
+    if excess > FLOW_ATOL:
+        raise AssertionError(f"RAFT card and CPU differ: {one_err}")
+    if not finite:
+        raise AssertionError("RAFT flow at 12 refinements is not finite")
+    w = outs["raft"]
+    if w.shape != (n_train,) or w.dtype != np.float32 or not np.isfinite(
+            w).all():
+        raise AssertionError(f"frame weights {w}")
+    if not np.array_equal(outs["identity_card"], outs["identity_cpu"]):
+        raise AssertionError("identity-flow weights differ card vs CPU")
+    if any(launches.values()):
+        raise AssertionError(f"frame_weights launched {launches}")
+    return launches
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
     """One more training step and one more cached step under
     torch.profiler, each with the blur bank and with the learnable kernel
@@ -3522,6 +3886,7 @@ def main(argv=None) -> int:
     phase_check(cfg, points, grid, params, requests[0], outs[0], grid_c)
     knob_launches = phase_serve_knobs(cfg, points, grid, grid_c, requests,
                                       serve_steady)
+    pers_launches = phase_query_pers(cfg, points, requests)
     if args.profile:
         phase_profile(cfg, points, grid, params, requests[1])
     tcfg = config.train_config()
@@ -3566,6 +3931,7 @@ def main(argv=None) -> int:
                 + learnable_launches[k] + eval_launches[k]
                 + train_cli_launches[k] + sum(n[k] for n in nerf_launches)
                 + knob_launches[k] + sum(d[k] for d in driver_launches)
+                + pers_launches[k]
                 for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 

@@ -14,6 +14,29 @@ def w2pers(xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
     return torch.stack([xyz_c[..., 0] / z, xyz_c[..., 1] / z, z], dim=-1)
 
 
+def pers2w(xyz_pers: torch.Tensor, camrotc2w: torch.Tensor,
+           campos: torch.Tensor) -> torch.Tensor:
+    """Inverse of w2pers: perspective coords (x/z, y/z, z) [..., 3] of the
+    camera -> world points."""
+    z = xyz_pers[..., 2]
+    xyz_c = torch.stack([xyz_pers[..., 0] * z, xyz_pers[..., 1] * z, z],
+                        dim=-1)
+    return xyz_c @ camrotc2w.T + campos
+
+
+def get_dtu_raydir(pixelcoords: torch.Tensor, intrinsic: torch.Tensor,
+                   camrotc2w: torch.Tensor,
+                   normalize: bool = True) -> torch.Tensor:
+    """Pixel coords [..., 2] (x, y) -> world ray directions [..., 3],
+    through pixel centres (+0.5), unit length when `normalize`."""
+    x = (pixelcoords[..., 0] + 0.5 - intrinsic[0, 2]) / intrinsic[0, 0]
+    y = (pixelcoords[..., 1] + 0.5 - intrinsic[1, 2]) / intrinsic[1, 1]
+    dirs = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    if normalize:
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return dirs @ camrotc2w.T
+
+
 def w2iproject(xyz_w: torch.Tensor, intrinsic: torch.Tensor,
                c2w: torch.Tensor, eps: float = 1e-10):
     """World points [..., 3] -> (pixel xy [..., 2], depth [..., 1]) in the

@@ -6,6 +6,8 @@ tree with checks and no reshuffling:
   - a conv `w` is HWIO over NHWC maps;
   - the point table is [N, table_width] f32 with columns
     xyz | embedding | conf | color | dirs | zero pad.
+RAFT is the exception: the port's RAFT is the reference's nn.Module, so
+raft_from_numpy renames JAX's leaves and turns its HWIO convs to OIHW.
 Inputs are numpy arrays (np.asarray of the JAX leaves), so this module
 needs no JAX.
 """
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from hybridneuralrendering_tpu_torch.device import resolve
+from hybridneuralrendering_tpu_torch.flow import raft as raft_mod
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.train import state as state_mod
 
@@ -95,3 +98,58 @@ def train_state_from_numpy(params: Any, table: np.ndarray, mask: np.ndarray,
                                 params=params_from_numpy(params, device),
                                 points=points, opt_net=opt_net,
                                 opt_pts=opt_pts)
+
+
+# JAX flow/raft.py leaf names -> the reference RAFT's module names
+_RAFT_BLOCKS = {"l1a": "layer1.0", "l1b": "layer1.1", "l2a": "layer2.0",
+                "l2b": "layer2.1", "l3a": "layer3.0", "l3b": "layer3.1"}
+_RAFT_BLOCK_LEAVES = {"c1": "conv1", "c2": "conv2", "down": "downsample.0",
+                      "bn1": "norm1", "bn2": "norm2", "bn3": "norm3"}
+_RAFT_UPDATE = {"mc1": "encoder.convc1", "mc2": "encoder.convc2",
+                "mf1": "encoder.convf1", "mf2": "encoder.convf2",
+                "mout": "encoder.conv", "gz1": "gru.convz1",
+                "gr1": "gru.convr1", "gq1": "gru.convq1",
+                "gz2": "gru.convz2", "gr2": "gru.convr2",
+                "gq2": "gru.convq2", "fh1": "flow_head.conv1",
+                "fh2": "flow_head.conv2", "mk1": "mask.0", "mk2": "mask.2"}
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+
+
+def _raft_leaf(name: str, p, sd) -> None:
+    """One conv {w HWIO, b} or batch norm {scale, bias, mean, var} of the
+    JAX tree into `sd` under `name`."""
+    if "w" in p:
+        sd[f"{name}.weight"] = np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))
+        sd[f"{name}.bias"] = np.asarray(p["b"])
+    else:
+        for k, v in _BN.items():
+            sd[f"{name}.{v}"] = np.asarray(p[k])
+
+
+def raft_from_numpy(params, device="cuda") -> raft_mod.RAFT:
+    """JAX's RaftParams (fnet, cnet, update; numpy leaves) -> the port's
+    RAFT in eval mode on `device`; every module parameter and buffer is
+    set (load_state_dict strict, the batch norms' batch counts zero)."""
+    sd = {}
+    for enc in ("fnet", "cnet"):
+        tree = getattr(params, enc)
+        for k, p in tree.items():
+            if k in _RAFT_BLOCKS:
+                block = f"{enc}.{_RAFT_BLOCKS[k]}"
+                for leaf, q in p.items():
+                    _raft_leaf(f"{block}.{_RAFT_BLOCK_LEAVES[leaf]}", q, sd)
+                    if leaf == "bn3":
+                        _raft_leaf(f"{block}.downsample.1", q, sd)
+            else:
+                _raft_leaf(f"{enc}.{'norm1' if k == 'bn0' else k}", p, sd)
+    for k, p in params.update.items():
+        _raft_leaf(f"update_block.{_RAFT_UPDATE[k]}", p, sd)
+    model = raft_mod.RAFT()
+    state = {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+             for k, v in sd.items()}
+    state.update({k: torch.zeros((), dtype=torch.long)
+                  for k in model.state_dict() if
+                  k.endswith("num_batches_tracked")})
+    model.load_state_dict(state, strict=True)
+    return model.eval().to(resolve(device))

@@ -338,13 +338,18 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
           frame_weight_n: Optional[torch.Tensor] = None,
           view_mask: Optional[torch.Tensor] = None,
           drop_mask: Optional[torch.Tensor] = None,
+          sampled_rw2c: Optional[torch.Tensor] = None,
           train: bool = False) -> AggOutput:
     """Shade all [R, SR] samples from their K gathered neighbours.
 
     img_feat_n [V, H, W, 45] pyramid features of the nearest views, or
     img_feat_staged = (images, (s1, s2, s3)) their cached stage maps
     (fusion.image_fusion); sample_loc_i_n [V, R, SR, 2] reprojected pixel positions; drop_mask [R]
-    bool, rays whose image features are dropped (read only when `train`)."""
+    bool, rays whose image features are dropped (read only when `train`).
+    sampled_rw2c [R, SR, K, 3, 3], edit mode's per-neighbour rotations:
+    the chain's first three delta channels turn by each neighbour's, the
+    point directions too, and the view direction by neighbour 0's (the
+    JAX package's frame; a masked neighbour 0 reads point 0's)."""
     _check_supported(cfg)
     cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     f32 = sampled_xyz.dtype
@@ -367,8 +372,16 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
     if cfg.dist_xyz_deno > 0:
         dists_flat = dists_flat / (cfg.dist_xyz_deno
                                    * float(np.linalg.norm(vsize)))
-    vdirs = positional_encoding(sample_ray_dirs, cfg.num_viewdir_freqs,
-                                ori=True)
+    vdirs_in, sampled_dir_in = sample_ray_dirs, sampled_dir
+    if sampled_rw2c is not None:
+        rot = torch.einsum("rskij,rskj->rski", sampled_rw2c,
+                           dists_flat[..., :3])
+        dists_flat = torch.cat([rot, dists_flat[..., 3:]], dim=-1)
+        vdirs_in = torch.einsum("rsij,rsj->rsi", sampled_rw2c[:, :, 0],
+                                sample_ray_dirs)
+        sampled_dir_in = torch.einsum("rskij,rskj->rski", sampled_rw2c,
+                                      sampled_dir)
+    vdirs = positional_encoding(vdirs_in, cfg.num_viewdir_freqs, ori=True)
     ori_viewdirs, vdirs_enc = vdirs[..., :3], vdirs[..., 3:]
 
     extras = []
@@ -376,8 +389,8 @@ def apply(params: Dict, cfg: AggregatorConfig, *,
         if "1" in cfg.point_color_mode:
             extras.append(sampled_color)
         if "1" in cfg.point_dir_mode:
-            extras += [sampled_dir - ori_viewdirs[..., None, :],
-                       torch.sum(sampled_dir * ori_viewdirs[..., None, :],
+            extras += [sampled_dir_in - ori_viewdirs[..., None, :],
+                       torch.sum(sampled_dir_in * ori_viewdirs[..., None, :],
                                  dim=-1, keepdim=True)]
     mask_w = pnt_mask.to(f32) * w
     chain_params = {k: params[k] for k in ("block1", "block2", "block3",

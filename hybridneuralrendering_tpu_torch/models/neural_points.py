@@ -2,12 +2,14 @@
 
 A fixed-capacity cloud: all five per-point attributes live stacked in one
 table [N, table_width] (xyz | embedding | conf | color | dirs | zero pad),
-live points marked by `mask`.  The render gathers rows of the table for the
-[R, SR, K] neighbour ids, directly or (the pyramid-cached training step)
-through a compact table of the unique rows, ranked by the cumsum_rows
-kernel (ops/scan.py); under autograd the gather's backward sorts the
-cotangent rows by id and reduces them with the segment-sum kernel
-(ops/segment_sum.py).
+live points marked by `mask`.  A scene put together by editing
+(cli/edit.py) also carries a per-point world-to-part rotation `rw2c`
+[N, 3, 3], which the gather hands on to the aggregator.  The render
+gathers rows of the table for the [R, SR, K] neighbour ids, directly or
+(the pyramid-cached training step) through a compact table of the unique
+rows, ranked by the cumsum_rows kernel (ops/scan.py); under autograd the
+gather's backward sorts the cotangent rows by id and reduces them with the
+segment-sum kernel (ops/segment_sum.py).
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ class NeuralPoints:
     num_live: int
     feature_dim: int = 32
     trainable: Tuple[bool, ...] = (False, True, True, True, True)
+    # edit mode only: each point's rotation from the world into the frame
+    # its part was trained in [N, 3, 3] f32; None otherwise
+    rw2c: Optional[torch.Tensor] = None
 
     def _view(self, name: str) -> torch.Tensor:
         o = 0
@@ -144,6 +149,7 @@ class SampledPoints(NamedTuple):
     conf: torch.Tensor        # [R, SR, K]
     color: torch.Tensor       # [R, SR, K, 3]
     dirs: torch.Tensor        # [R, SR, K, 3]
+    rw2c: Optional[torch.Tensor] = None   # [R, SR, K, 3, 3] in edit mode
 
 
 def segment_ends(si: torch.Tensor, n: int) -> torch.Tensor:
@@ -254,15 +260,17 @@ def gather(points: NeuralPoints, sample_pidx: torch.Tensor,
     xyz, emb, conf, color, dirs = [
         p if trainable else p.detach()
         for p, trainable in zip(parts, points.trainable)]
+    rw2c = (None if points.rw2c is None
+            else points.rw2c[torch.clamp(sample_pidx.long(), min=0)])
     return SampledPoints(xyz=xyz, embedding=emb, conf=conf[..., 0],
-                         color=color, dirs=dirs)
+                         color=color, dirs=dirs, rw2c=rw2c)
 
 
 def prune(points: NeuralPoints, thresh: float) -> NeuralPoints:
     """Drop the live points whose conf is not above `thresh` (JAX:
     neural_points.prune; reference prune, neural_points.py:350-373).  Pure
-    masking: capacity and table unchanged, `num_live` recounted.  Returns a
-    new NeuralPoints sharing the input's table."""
+    masking: capacity, table and rw2c unchanged, `num_live` recounted.
+    Returns a new NeuralPoints sharing the input's table."""
     keep = points.mask & (points.conf[:, 0] > thresh)
     return dataclasses.replace(points, mask=keep,
                                num_live=int(keep.sum()))
@@ -277,8 +285,9 @@ def grow(points: NeuralPoints, new_xyz: torch.Tensor,
     376-402): the r-th masked new point goes to the r-th free slot in index
     order, and what does not fit is dropped (JAX's mode="drop").  The new
     points' ranks and the free slots' ranks are int32 row scans
-    (cumsum_rows: the kernel on the card).  Returns a new NeuralPoints on
-    the points' device; the input is left untouched."""
+    (cumsum_rows: the kernel on the card).  An rw2c is kept as it is: a
+    new point takes its slot's old rotation, as in JAX.  Returns a new
+    NeuralPoints on the points' device; the input is left untouched."""
     cap = points.capacity
     dev = points.table.device
     new_mask = new_mask.to(device=dev, dtype=torch.bool)

@@ -140,7 +140,7 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
             sample_loc_i_n=sample_loc_i_n,
             delta_viewdir_n=delta_vd_n, frame_weight_n=frame_w_n,
             view_mask=batch.get("view_mask"), drop_mask=drop_mask,
-            train=train)
+            sampled_rw2c=sampled.rw2c, train=train)
 
     with record_function("render.march"):
         ray_dist = march.ray_dist_from_depth(

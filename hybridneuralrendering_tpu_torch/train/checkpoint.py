@@ -2,7 +2,9 @@
 (JAX: hybridneuralrendering_tpu/train/checkpoint.py).
 
 `<dir>/<step>_state.npz` holds the flat TrainState: `step` (int32),
-`params/<path>`, `points/{table,mask,num_live}`, for each of
+`params/<path>`, `points/{table,mask,num_live}` (and `points/rw2c` where
+the points carry edit mode's rotations: written as JAX writes it, left
+out on load as JAX's loader leaves it), for each of
 `opt_state_net` and `opt_state_pts` optax's `(ScaleByAdamState,
 ScaleByScheduleState)` tuple as `0/count`, `0/mu/<path>`, `0/nu/<path>`
 and `1/count`, and `__best_psnr__` (float64).  A list in the parameter tree
@@ -84,6 +86,10 @@ def flatten_state(state: state_mod.TrainState,
     flat["points/table"] = pts.table
     flat["points/mask"] = pts.mask
     flat["points/num_live"] = _count(pts.num_live)
+    if pts.rw2c is not None:
+        # edit mode's rotations, written as JAX writes them; a load leaves
+        # them out, as JAX's template (rw2c None) does
+        flat["points/rw2c"] = pts.rw2c
     flat.update(_adam_keys("opt_state_net", state.opt_net,
                            state.opt_net.count, table=False))
     pts_count = (state.opt_pts.count if state.opt_pts is not None

@@ -2,10 +2,9 @@
 
 An append-only log.txt, accumulated loss means with their PSNR, a
 `scalars.jsonl` stream, PNG dumps under `<out_dir>/<name>/images/` and a
-video of them: the reference's layout.  PNGs go through io/png.py; the
-video needs `imageio` (imported where it is used, as in the JAX package).
-Point dumps (save_neural_points, whose only JAX caller is cli/edit) come
-with the edit slice.
+video of them, and point dumps under `<out_dir>/<name>/points/`: the
+reference's layout.  PNGs go through io/png.py; the video needs `imageio`
+(imported where it is used, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -75,6 +74,21 @@ class Visualizer:
     def save_image(self, img, step: int, name: str) -> str:
         path = os.path.join(self.img_dir, f"step-{step:04d}-{name}.png")
         png.write(path, to8b(img))
+        return path
+
+    def save_neural_points(self, xyz, step: int, color=None) -> str:
+        """points/step-<step>.txt: one point a line, xyz [n, 3] and, when
+        given, its colour [n, 3] in [0, 1] as to8b's 0-255 levels,
+        separated by ";" (np.savetxt, as the JAX package writes it).  The
+        points directory is made on the first dump."""
+        if torch.is_tensor(xyz):
+            xyz = xyz.detach().cpu().numpy()
+        pnt_dir = os.path.join(self.dir, "points")
+        os.makedirs(pnt_dir, exist_ok=True)
+        path = os.path.join(pnt_dir, f"step-{step}.txt")
+        data = xyz if color is None else np.concatenate(
+            [xyz, to8b(color)], axis=-1)
+        np.savetxt(path, data, delimiter=";")
         return path
 
     def gen_video(self, pattern_dir: Optional[str] = None, fps: int = 20,

@@ -5,8 +5,9 @@ ops/shading_chain.tolerance, a relative L2 error; the row scan bit for bit
 on int32 and within ops/scan.tolerance on float32), the voxel grid, a
 render and a training step (uncached and cached; also with the learnable
 blur kernel) on the card against the same on the CPU, the per-voxel K-NN
-against the CPU and the supervoxel path, and the native batch sampler
-built on this machine.  They skip where torch.cuda.is_available() is false.
+against the CPU and the supervoxel path, the native batch sampler built
+on this machine, the frustum query, the edit render with rw2c and RAFT
+against the CPU.  They skip where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -1291,3 +1292,101 @@ def test_compute_dtype_alpha_head_on_card(cuda):
     assert TSC.rel_l2(feat.cpu(), cfeat) < TSC.tolerance("bfloat16", "feat")
     assert TSC.rel_l2(alpha.cpu(), calpha) < TSC.tolerance("bfloat16",
                                                            "alpha")
+
+
+@pytest.mark.gpu
+def test_frustum_query_on_card_equals_cpu(cuda):
+    """ops/query_pers on tiny_test's scene from the requests' camera: the
+    frustum grid's tables and the query's ids and masks on the card equal
+    the CPU's (perspective coordinates are written-out products, which
+    round alike on both); one K-min a query, two row scans a build."""
+    from hybridneuralrendering_tpu_torch.ops import query_pers as QP
+    cfg = TC.tiny_test()
+    qc = dataclasses.replace(cfg.querier, vsize=(0.01, 0.01, 0.05))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        points, _ = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+        b = synthetic.make_synthetic_batch(cfg, num_rays=200, device=dev)
+        H, W = cfg.image_hw
+        near, far = cfg.render.near_plane, cfg.render.far_plane
+        geom = QP.frustum_geometry(synthetic.intrinsic(H, W), H, W, near,
+                                   far, qc, device=dev)
+        k0, s0 = TS.k_smallest.launches, TSCAN.cumsum_rows.launches
+        grid = QP.build_frustum_grid(points.xyz, points.mask,
+                                     b["camrotc2w"], b["campos"], geom, qc)
+        out = QP.query_points_pers(grid, points.xyz, b["camrotc2w"],
+                                   b["campos"], b["raydir"], qc, near, far)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert TS.k_smallest.launches - k0 == 1
+            assert TSCAN.cumsum_rows.launches - s0 == 2
+        res[dev.type] = (grid, out)
+    (kg, ko), (cg, co) = res["cuda"], res["cpu"]
+    for k in ("coor2occ", "occ_pnts", "coor2node", "occ_bits", "num_occ"):
+        assert torch.equal(getattr(kg, k).cpu(), getattr(cg, k)), k
+    for k in ("sample_pidx", "sample_mask", "pnt_mask", "ray_mask"):
+        assert torch.equal(getattr(ko, k).cpu(), getattr(co, k)), k
+    assert co.pnt_mask.any()
+    torch.testing.assert_close(ko.sample_loc_w.cpu(), co.sample_loc_w,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_edit_render_with_rw2c_on_card_matches_cpu(cuda):
+    """A merged scene of tiny_test's points, a second copy turned 30
+    degrees about z with rw2c = R^T, rendered on the card and on the CPU
+    through render_rays: masks equal, colours within 5e-3; the card's
+    render without rw2c must differ by more."""
+    from hybridneuralrendering_tpu_torch.cli import edit
+    cfg = TC.tiny_test()
+    a = synthetic.scene_arrays(cfg, 900, seed=0)
+    c, s = 0.8660254, 0.5
+    R = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]]).numpy()
+    moved = dict(a, xyz=(a["xyz"] @ R.T + [0.3, -0.2, 0.1]).astype(
+        "float32"))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        parts = []
+        for arrs, rot in ((a, None), (moved, R)):
+            p = {k: arrs[k] for k in edit.PART_ATTRS}
+            rw = torch.eye(3) if rot is None else torch.as_tensor(rot.T)
+            p["rw2c"] = rw.expand(len(p["xyz"]), 3, 3).numpy().astype(
+                "float32")
+            parts.append(p)
+        points = edit.merge_parts(parts, cfg, device=dev)
+        grid = TVG.grid_of(points.xyz, points.mask, cfg.querier)
+        params = renderer.init_params(cfg, seed=0, device=dev)
+        params["aggregator"]["alpha"][-1]["b"] += 4.0
+        b = synthetic.make_synthetic_batch(cfg, num_rays=300, device=dev)
+        b = {k: v for k, v in b.items() if "nearest" not in k}
+        out[dev.type] = serve.render_rays(params, points, grid, b, cfg)
+        if dev.type == "cuda":
+            fault = serve.render_rays(
+                params, dataclasses.replace(points, rw2c=None), grid, b,
+                cfg)
+    kout, cout = out["cuda"], out["cpu"]
+    assert torch.equal(kout["ray_mask"].cpu(), cout["ray_mask"])
+    assert cout["ray_mask"].float().mean() > 0.3
+    err = (kout["coarse_raycolor"].cpu() - cout["coarse_raycolor"]).abs()
+    assert float(err.max()) <= 5e-3
+    ferr = (fault["coarse_raycolor"].cpu() - cout["coarse_raycolor"]).abs()
+    assert float(ferr.max()) > 5e-3
+
+
+@pytest.mark.gpu
+def test_raft_one_iteration_on_card_matches_cpu(cuda):
+    """RAFT with seeded weights at 128x128, iters=1: the card's flow
+    (float32 convolutions without TF32) against the CPU's within rtol
+    1e-3 / atol 5e-2 (tests/test_torch_port_flow.py's limit against
+    JAX)."""
+    from hybridneuralrendering_tpu_torch.flow import raft
+    g = torch.Generator().manual_seed(3)
+    im1, im2 = (torch.rand(128, 128, 3, generator=g) * 255 for _ in range(2))
+    flows = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = raft.init(seed=0, device=dev)
+        flows[dev.type] = raft.estimate_flow(model, im1.to(dev),
+                                             im2.to(dev), iters=1).cpu()
+    assert torch.isfinite(flows["cuda"]).all()
+    torch.testing.assert_close(flows["cuda"], flows["cpu"], rtol=1e-3,
+                               atol=5e-2)

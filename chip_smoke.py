@@ -148,16 +148,33 @@ Phases, each printing one JSON progress line:
                  cli.frame_weights on eval_cli's scene with RAFT and with
                  identity flow (card = CPU bit for bit); no kernel of the
                  port runs.
+ 18. mvs       inside eval_cli, after frame_weights: mvs_bootstrap,
+                 cli.train --load-points 0 at train_config() with seeded
+                 MVSNet weights as a reference-layout --mvs-ckpt, D = 96,
+                 every view triplet (2), then 5 per-scene steps and the
+                 save (launches as _predicted_launches gives them: one
+                 grid build, then the uncached steps'), the seconds a
+                 triplet, the cloud before and after the filter and the
+                 downsample, and triplet 0's depth and confidence card
+                 against CPU at 240x320; train_ff, cli.train --train-mode
+                 ff (ProbNet depth, D = 96, the grid pinned to the ranges)
+                 for 1 + 5 timed steps of M = 19,200 generated points (per
+                 step one K-min, two row scans, one of each chain kernel
+                 and one segment sum), then a reduced step card against
+                 CPU (loss, each Adam group's gradient norm) and the
+                 generated table detached from the MVS nets, which it
+                 must reject.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step, each with the blur bank and with
-the learnable kernel, and one more NeRF request and NeRF step, and prints
+the learnable kernel, one more NeRF request and NeRF step, and one more
+feed-forward step, and prints
 the kernels that took the most device time.
 
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
 the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli,
 train_cli, serve_nerf, train_nerf, train_cli_nerf, serve_knobs,
-render_vid, visualize, render_vid_nerf, query_pers and edit runs), the
-card as
+render_vid, visualize, render_vid_nerf, query_pers, edit, mvs_bootstrap
+and train_ff runs), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -1972,7 +1989,7 @@ def _cpu_grid(points, cfg):
     return VG.build_grid(points.xyz, points.mask, geom, cfg.querier)
 
 
-def phase_eval_cli(cfg, st, grid):
+def phase_eval_cli(cfg, st, grid, prof=False):
     """The evaluation CLI on the card: a ScanNet-layout scene of
     EVAL_FRAMES frames of the requests' camera (EVAL_FRAMES // 5 train
     frames, the rest test) in a temporary directory; the trained state
@@ -2103,7 +2120,8 @@ def phase_eval_cli(cfg, st, grid):
         more = [phase_render_vid(cfg, root, ck_root, st_c, grid_c),
                 phase_visualize(cfg, root, ck_root)]
         del st_c, grid_c
-        more += [phase_edit(root, ck_root), phase_frame_weights(root)]
+        more += [phase_edit(root, ck_root), phase_frame_weights(root),
+                 phase_mvs_bootstrap(root), phase_train_ff(root, prof)]
     log("eval_cli", frames=frames, scores=scores, launches=launches,
         ray_hit_share=sum(frames_hit) / len(frames_hit),
         mean_frame_ms=sum(f["ms"] for f in frames) / len(frames),
@@ -2243,7 +2261,7 @@ class _Recorder:
             _Planted(cli_train, "evaluate", self.timed(
                 "evaluate", lambda a, kw, out: dict(psnr=out))),
             _Planted(cli_train, "bootstrap_points", self.timed(
-                "bootstrap", lambda a, kw, out: dict(points=len(out)))),
+                "bootstrap", lambda a, kw, out: dict(points=len(out[0])))),
             _Planted(checkpoint, "save_checkpoint", self.timed(
                 "save", lambda a, kw, out: dict(file=os.path.basename(out),
                                                 bytes=os.path.getsize(out)))),
@@ -3832,6 +3850,330 @@ def phase_frame_weights(root):
     return launches
 
 
+# the MVS phases, on eval_cli's scene (4 train frames: 2 view triplets):
+# mvs_bootstrap runs cli.train --load-points 0 with seeded MVSNet weights
+# in a reference-layout .ckpt, D = 96, then MVS_BOOT_STEPS per-scene steps
+# and the final save; one triplet's depth and confidence card against CPU
+# at 1/MVS_CHECK_SUB of the frame (240x320: the CPU's 3D U-Net at full
+# width would take most of the phase), within MVS_DEPTH_TOL (m) and
+# MVS_CONF_TOL
+MVS_BOOT_STEPS, MVS_DEPTHS, MVS_CHECK_SUB = 5, 96, 2
+MVS_DEPTH_TOL, MVS_CONF_TOL = 1e-3, 1e-3
+# train_ff: cli.train --train-mode ff (ProbNet depth, D = 96) at
+# train_config(), 1 warm-up + FF_STEPS timed steps; then one step card
+# against CPU at a reduced size (one triplet's frames subsampled by
+# FF_CHECK_SUB: 96x128, M = 768 points, D = FF_CHECK_DEPTHS, FF_CHECK_RAYS
+# rays at the config's SR and K): the loss within FF_LOSS_TOL and each
+# Adam group's gradient norm within FF_GRAD_TOL, relative (the chain
+# rounds to bf16 at other points on the two devices); the generated
+# table detached from the MVS nets must be rejected
+FF_STEPS, FF_CHECK_SUB, FF_CHECK_DEPTHS, FF_CHECK_RAYS = 5, 5, 32, 256
+FF_LOSS_TOL, FF_GRAD_TOL = 5e-3, 2e-2
+
+
+def _mvsnet_state_dict(seed):
+    """Seeded weights of the official MVSNet under the reference's names
+    and in torch's layouts (what io/torch_import.import_mvsnet reads),
+    batch norms with positive variances."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def u(shape, lim):
+        return (torch.rand(shape, generator=g) * 2 - 1) * lim
+
+    def conv(name, shape, bias=False):
+        fan = shape[1] * math.prod(shape[2:])
+        sd[f"{name}.weight"] = u(shape, math.sqrt(3.0 / fan))
+        if bias:
+            sd[f"{name}.bias"] = u((shape[0],), 0.1)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1 + u((c,), 0.2)
+        sd[f"{name}.bias"] = u((c,), 0.1)
+        sd[f"{name}.running_mean"] = u((c,), 0.1)
+        sd[f"{name}.running_var"] = 1 + u((c,), 0.5)
+
+    for i, (ci, co, k) in enumerate([(3, 8, 3), (8, 8, 3), (8, 16, 5),
+                                     (16, 16, 3), (16, 16, 3), (16, 32, 5),
+                                     (32, 32, 3)]):
+        conv(f"feature.conv{i}.conv", (co, ci, k, k))
+        bn(f"feature.conv{i}.bn", co)
+    conv("feature.feature", (32, 32, 3, 3), bias=True)
+    cr = "cost_regularization"
+    for i, (ci, co) in enumerate([(32, 8), (8, 16), (16, 16), (16, 32),
+                                  (32, 32), (32, 64), (64, 64)]):
+        conv(f"{cr}.conv{i}.conv", (co, ci, 3, 3, 3))
+        bn(f"{cr}.conv{i}.bn", co)
+    for i, (ci, co) in ((7, (64, 32)), (9, (32, 16)), (11, (16, 8))):
+        conv(f"{cr}.conv{i}.0", (ci, co, 3, 3, 3))     # [in, out, k, k, k]
+        bn(f"{cr}.conv{i}.1", co)
+    conv(f"{cr}.prob", (1, 8, 3, 3, 3), bias=True)
+    return sd
+
+
+def phase_mvs_bootstrap(root):
+    """cli.train --load-points 0 on the card at train_config() on
+    eval_cli's scene: MVSNet depth for every view triplet (MVS_DEPTHS
+    planes, the seeded weights as a reference-layout --mvs-ckpt,
+    --mvs-conf-thresh 0: random weights' confidences lie near 0.5), the
+    cross-triplet filter, the downsample and the embeddings; then
+    MVS_BOOT_STEPS uncached per-scene steps and the final save.  Its
+    launches must equal the schedule's (the bootstrap runs none of the
+    port's kernels; one grid build, then the steps').  Then triplet 0's
+    depth and confidence on the card and on the CPU at 1/MVS_CHECK_SUB of
+    the frame."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.cli import train as cli_train
+    from hybridneuralrendering_tpu_torch.data import scannet
+    from hybridneuralrendering_tpu_torch.device import no_tf32
+    from hybridneuralrendering_tpu_torch.io import torch_import
+    from hybridneuralrendering_tpu_torch.mvs import point_gen
+    from hybridneuralrendering_tpu_torch.train import bootstrap
+    cfg = config.train_config()
+    path = os.path.join(root, "mvsnet_seeded.ckpt")
+    torch.save({"model": {"module." + k: v for k, v in
+                          _mvsnet_state_dict(0).items()}}, path)
+    timed = _Recorder()
+    sizes = {}
+
+    def downsample(real):
+        def voxel_downsample_closest(xyz, vox_res):
+            out = real(xyz, vox_res)
+            sizes.update(filtered=len(xyz), downsampled=len(out[0]))
+            return out
+        return voxel_downsample_closest
+
+    argv = ["--preset", "train", "--data-root", root, "--scan", "synth",
+            "--checkpoints-dir", os.path.join(root, "mvs_ckpts"), "--name",
+            "mvs", "--load-points", "0", "--mvs-ckpt", path,
+            "--mvs-conf-thresh", "0", "--mvs-num-depths", str(MVS_DEPTHS),
+            "--max-steps", str(MVS_BOOT_STEPS), "--test-freq", "0",
+            "--save-freq", "0", "--print-freq", str(MVS_BOOT_STEPS),
+            "--device", DEVICE]
+    with _Planted(point_gen, "gen_depth", timed.timed(
+            "depth", lambda a, kw, out: list(out[0].shape))), \
+            _Planted(bootstrap, "voxel_downsample_closest", downsample):
+        st, rec, launches, seconds, peak = _cli_call(cli_train, argv, 1)
+    want = _predicted_launches(cfg, launches,
+                               [(c, f) for c, f, _, _ in rec.steps], 0,
+                               rec.grids, rec.grows)
+    saves = rec.of("save")
+    boot = rec.of("bootstrap")
+    # triplet 0 on the card and on the CPU at 1/MVS_CHECK_SUB
+    ds = scannet.ScannetScene(root, "synth", cfg, "train")
+    groups = bootstrap.groups_from_dataset(ds)
+    imgs, w2cs = cli_train.group_views(ds, groups[0])
+    imgs = np.ascontiguousarray(imgs[:, ::MVS_CHECK_SUB, ::MVS_CHECK_SUB])
+    k = ds.intrinsic.copy()
+    k[:2] /= MVS_CHECK_SUB
+    sd = torch_import.load_torch_state_dict(path)
+    maps, check_s = {}, {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        p = point_gen.MvsPointsParams(
+            feature={}, mvsnet=torch_import.import_mvsnet(sd, dev),
+            premlp=None)
+        with torch.no_grad(), no_tf32():
+            d, c, _ = point_gen.gen_depth(
+                p, torch.as_tensor(imgs, device=dev),
+                torch.as_tensor(k, device=dev),
+                torch.as_tensor(w2cs, device=dev), cfg.render.near_plane,
+                cfg.render.far_plane, MVS_DEPTHS)
+        maps[dev] = (d.cpu(), c.cpu())
+        check_s[dev] = time.perf_counter() - t0
+    depth_err = float((maps[DEVICE][0] - maps["cpu"][0]).abs().max())
+    conf_err = float((maps[DEVICE][1] - maps["cpu"][1]).abs().max())
+    depth_maps = timed.of("depth")
+    h, w = depth_maps[0][2]
+    log("mvs_bootstrap", preset="train", depths=MVS_DEPTHS,
+        groups=len(groups), group_ms=[e[1] * 1e3 for e in depth_maps],
+        depth_map=[h, w], pixels=len(groups) * h * w,
+        after_filter_and_clip=sizes.get("filtered"),
+        after_downsample=sizes.get("downsampled"),
+        bootstrap_seconds=[e[1] for e in boot],
+        init_cloud=[e[2]["points"] for e in boot],
+        step_ms=_stats([x[3] for x in rec.steps]),
+        saves=[dict(seconds=e[1], **e[2]) for e in saves],
+        main_seconds=seconds, max_memory_allocated=peak, launches=launches,
+        check_hw=list(imgs.shape[1:3]), check_depth_max_abs_err=depth_err,
+        check_conf_max_abs_err=conf_err, depth_tol=MVS_DEPTH_TOL,
+        conf_tol=MVS_CONF_TOL, check_seconds=check_s)
+    if launches != want:
+        raise AssertionError(f"cli.train --load-points 0 launched "
+                             f"{launches}, the schedule gives {want}")
+    if (len(depth_maps) != len(groups) or not boot
+            or not 0 < sizes.get("downsampled", 0) <= sizes["filtered"]
+            < len(groups) * h * w + 1 or st.step != MVS_BOOT_STEPS
+            or [e[2]["file"] for e in saves]
+            != [f"{MVS_BOOT_STEPS}_state.npz"]):
+        raise AssertionError(f"the MVS bootstrap ran {len(depth_maps)} "
+                             f"depth maps for {len(groups)} triplets, kept "
+                             f"{sizes}, or trained / saved otherwise")
+    if depth_err > MVS_DEPTH_TOL or conf_err > MVS_CONF_TOL:
+        raise AssertionError(f"MVSNet depth card vs CPU: {depth_err}, "
+                             f"conf {conf_err}")
+    return launches
+
+
+def _ff_check_case(root, dev, sub=FF_CHECK_SUB, n_rays=FF_CHECK_RAYS):
+    """A feed-forward step's inputs on `dev`: triplet 0 of eval_cli's
+    scene subsampled by `sub`, `n_rays` rays of its first view on a square
+    grid, seeded renderer and ProbNet networks, the pinned geometry of
+    train_config() (train_ff's reduced check: FF_CHECK_SUB,
+    FF_CHECK_RAYS)."""
+    import numpy as np
+    import torch
+    from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.cli import train as cli_train
+    from hybridneuralrendering_tpu_torch.data import scannet
+    from hybridneuralrendering_tpu_torch.models import renderer
+    from hybridneuralrendering_tpu_torch.mvs import point_gen
+    from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+    from hybridneuralrendering_tpu_torch.train import bootstrap, step_ff
+    cfg = config.train_config()
+    ds = scannet.ScannetScene(root, "synth", cfg, "train")
+    imgs, w2cs = cli_train.group_views(
+        ds, bootstrap.groups_from_dataset(ds)[0])
+    s = sub
+    imgs = np.ascontiguousarray(imgs[:, ::s, ::s])
+    k = ds.intrinsic.copy()
+    k[:2] /= s
+    H, W = imgs.shape[1:3]
+    side = int(math.isqrt(n_rays))
+    ys, xs = np.meshgrid(np.linspace(4, H - 5, side),
+                         np.linspace(4, W - 5, side), indexing="ij")
+    c2w = np.linalg.inv(w2cs[0])
+    d = np.stack([(xs - k[0, 2]) / k[0, 0], (ys - k[1, 2]) / k[1, 1],
+                  np.ones_like(xs)], -1).reshape(-1, 3) @ c2w[:3, :3].T
+    rays = {"campos": c2w[:3, 3], "camrotc2w": c2w[:3, :3],
+            "raydir": d / np.linalg.norm(d, axis=-1, keepdims=True),
+            "gt_image": imgs[0][ys.astype(int), xs.astype(int)].reshape(
+                -1, 3), "bg_color": np.asarray(cfg.render.bg_color)}
+    gen = torch.Generator().manual_seed(7)
+    noise = torch.rand(len(d), cfg.querier.z_depth_dim, generator=gen)
+    state = step_ff.create_ff_state(
+        renderer.init_params(cfg, seed=0, device="cpu"),
+        point_gen.init(torch.Generator().manual_seed(1),
+                       cfg.points.feature_dim, use_mvsnet=False,
+                       use_probnet=True), cfg, device=dev)
+    r = np.asarray(cfg.querier.ranges, np.float32)
+    geom = VG.compute_grid_geometry(np.stack([r[:3], r[3:]]),
+                                    np.ones(2, bool), cfg.querier,
+                                    device=dev)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    group = {"images": t(imgs), "w2cs": t(w2cs), "intrinsic": t(k)}
+    return (cfg, state, group, {k_: t(v) for k_, v in rays.items()}, geom,
+            noise.to(dev))
+
+
+def phase_train_ff(root, prof=False):
+    """cli.train --train-mode ff on the card at train_config() (R = 3,136,
+    SR = 24) on eval_cli's scene: ProbNet depth at MVS_DEPTHS planes, the
+    grid pinned to the querier's ranges (403^3 voxels within
+    grid_capacity), 1 warm-up + FF_STEPS steps timed, each regenerating
+    M = 120 x 160 points; its launches must be the schedule's (per step
+    one K-min, two row scans for the grid, one of each chain kernel, one
+    segment sum, no table Adam).  Then the reduced step card against CPU
+    and the detached-table fault (_ff_check_case); with `prof`, one more
+    full-size step (3,136 rays) under torch.profiler."""
+    import torch
+    from hybridneuralrendering_tpu_torch.cli import train as cli_train
+    from hybridneuralrendering_tpu_torch.train import step_ff
+    from hybridneuralrendering_tpu_torch.train import state as TS
+    timed = _Recorder()
+    argv = ["--preset", "train", "--data-root", root, "--scan", "synth",
+            "--checkpoints-dir", os.path.join(root, "ff_ckpts"), "--name",
+            "ff", "--train-mode", "ff", "--mvs-num-depths", str(MVS_DEPTHS),
+            "--max-steps", str(FF_STEPS + 1), "--print-freq",
+            str(FF_STEPS + 1), "--save-freq", "0", "--device", DEVICE]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _Planted(step_ff, "train_step_ff", timed.timed(
+            "step", lambda a, kw, out: float(out[1]["num_points"]))), \
+            _Planted(step_ff, "generate_points", timed.timed(
+                "points", lambda a, kw, out: out.table.shape[0])):
+        st = cli_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = FF_STEPS + 1
+    want = dict.fromkeys(launches, 0)
+    want.update(k_smallest=n, cumsum_rows=2 * n, shading_chain_fwd=n,
+                shading_chain_bwd=n, shading_chain_dw=n, segment_sum=n)
+    ckpts = sorted(os.listdir(os.path.join(root, "ff_ckpts", "ff", "ckpt")))
+    # the reduced step on the card and on the CPU, and the planted fault
+    res = {}
+    for dev, fault in ((DEVICE, False), ("cpu", False), (DEVICE, True)):
+        cfg, state, group, rays, geom, noise = _ff_check_case(root, dev)
+        real = step_ff.table_of
+        detach = (lambda real_: lambda *a: real_(*a).detach()) if fault \
+            else (lambda real_: real_)
+        with _Planted(step_ff, "table_of", detach):
+            items, g_net, g_mvs = step_ff.loss_and_grads_ff(
+                state, group, rays, geom, cfg, noise, FF_CHECK_DEPTHS, True,
+                0.0)
+        assert step_ff.table_of is real
+        norms = [math.sqrt(sum(float((x.double() ** 2).sum()) for x in
+                               TS.tree_leaves(g))) for g in (g_net, g_mvs)]
+        res[(dev, fault)] = (float(items["loss_total"]), norms,
+                             float(items["num_points"]))
+    (lc, nc, ptc), (lp, npl, _) = res[(DEVICE, False)], res[("cpu", False)]
+    loss_err = abs(lc - lp) / abs(lp)
+    grad_err = [abs(a - b) / b for a, b in zip(nc, npl)]
+    lf, nf, _ = res[(DEVICE, True)]
+    fault_err = max([abs(lf - lp) / abs(lp) / FF_LOSS_TOL]
+                    + [abs(a - b) / b / FF_GRAD_TOL
+                       for a, b in zip(nf, npl)])
+    ms = [e[1] * 1e3 for e in timed.of("step")]
+    rows = [e[2] for e in timed.of("points")]
+    log("train_ff", preset="train", depths=MVS_DEPTHS,
+        warmup_ms=ms[0], step_ms=_stats(ms[1:]),
+        generated_rows=rows[:1],
+        live_points=[e[2] for e in timed.of("step")], main_seconds=seconds,
+        max_memory_allocated=peak, launches=launches, checkpoints=ckpts,
+        check=dict(sub=FF_CHECK_SUB, rays=FF_CHECK_RAYS,
+                   depths=FF_CHECK_DEPTHS, live_points=ptc,
+                   loss_card=lc, loss_cpu=lp, loss_rel_err=loss_err,
+                   loss_tol=FF_LOSS_TOL, grad_norms_card=nc,
+                   grad_norms_cpu=npl, grad_norm_rel_err=grad_err,
+                   grad_tol=FF_GRAD_TOL, detached_table_grad_norms=nf,
+                   detached_table_margin=fault_err))
+    if prof:
+        cfg, state, group, rays, geom, noise = _ff_check_case(
+            root, DEVICE, 1, cfg.sampling.rays_per_batch)
+
+        def step():
+            step_ff.train_step_ff(state, group, rays, geom, cfg, noise,
+                                  MVS_DEPTHS, True, 0.0)
+        step()
+        profile("train_ff", step)
+    if launches != want:
+        raise AssertionError(f"cli.train --train-mode ff launched "
+                             f"{launches}, the schedule gives {want}")
+    if (st.step != n or len(ms) != n or ckpts != [f"ff_{n:08d}.npz",
+                                                  "run_config.json"]
+            or any(r != 120 * 160 for r in rows)):
+        raise AssertionError(f"the ff run took {len(ms)} steps to "
+                             f"{st.step}, saved {ckpts} or generated "
+                             f"{rows} rows")
+    if loss_err > FF_LOSS_TOL or max(grad_err) > FF_GRAD_TOL \
+            or not min(npl) > 0:
+        raise AssertionError(f"ff step card vs CPU: loss {loss_err}, "
+                             f"gradient norms {grad_err}")
+    if fault_err <= 1.0:
+        raise AssertionError(f"the detached table passed the ff check "
+                             f"({fault_err})")
+    return launches
+
+
 def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
     """One more training step and one more cached step under
     torch.profiler, each with the blur bank and with the learnable kernel
@@ -3905,7 +4247,8 @@ def main(argv=None) -> int:
                                             spread=False)
         phase_train_check(kcfg, kpoints, grid, grid_c, kparams, knob=knob)
         del kparams, kpoints
-    eval_launches, driver_launches = phase_eval_cli(cfg, st, grid)
+    eval_launches, driver_launches = phase_eval_cli(cfg, st, grid,
+                                                    args.profile)
     train_cli_launches = phase_train_cli()
     if args.profile:
         phase_profile_train(tcfg, st, grid, batch, bank, staged, learnable)

@@ -5,18 +5,32 @@ reference run/train_ft.py:621-1085).
         --preset scannet_full --data-root <scans> --scan scene0241_01 \\
         --checkpoints-dir <ckpts> [--max-steps N] [--device cpu]
 
-Bootstraps the point cloud from the scene's PLY mesh or sensor depth,
-builds the query grid and trains: uncached steps (the pyramid CNN inside)
-in the bursts of the schedule, cached steps (train/pyramid_cache) between
+Bootstraps the point cloud from the scene's PLY mesh (--load-points 1),
+its sensor depth (2, the default) or the feed-forward MVS networks (0:
+MVSNet depth per view triplet, filtered across the triplets, with
+per-point embeddings; train/bootstrap), builds the query grid and
+trains: uncached steps (the pyramid CNN inside) in the bursts of the
+schedule, cached steps (train/pyramid_cache) between
 them, with periodic evaluation, checkpoints, confidence pruning and
 probe-and-grow in process (train/lifecycle).  The flags, their defaults,
 the schedule, the log lines and the checkpoints are the JAX CLI's.  Runs on
 the card unless `--device cpu` is given.
 
 A step's candidate noise comes from one torch.Generator on the device,
-seeded by --seed, through `step_noise`; the initial parameters and point
-embeddings from CPU generators seeded by --seed (`init_params`,
-`init_embedding`).  The JAX CLI draws all three from jax.random keys.
+seeded by --seed, through `step_noise`; the initial parameters, point
+embeddings and MVS networks from CPU generators seeded by --seed
+(`init_params`, `init_embedding`, `init_mvs`).  The JAX CLI draws them
+all from jax.random keys.  --mvs-ckpt loads the pretrained MVSNet in a
+reference-layout checkpoint (io/torch_import.import_mvsnet).
+
+`--train-mode ff` trains feed-forward (train/step_ff, `train_ff`): every
+step regenerates the cloud of a random view triplet through the MVS
+networks, on a grid geometry pinned to the querier's ranges, and trains
+them with the renderer; without --mvs-ckpt the depth is the learned
+ProbNet volume's.  As in JAX, the step renders the triplet's first view
+through get_batch, whose index is a position in the scene's id_list,
+while the triplets hold positions in its train_id_list: the two differ
+where a blur list removed frames (ROADMAP Queue 3).
 
 `--native-prefetch N` (N > 0, dilated sampling) assembles each step's
 pixels, ground truth and ray directions in the native sampler
@@ -33,10 +47,6 @@ in the JAX CLI, such a scene has no sensor depth, so --load-points 2 fails
 with AttributeError at the bootstrap, and --native-prefetch with a dilated
 NeRF preset fails with AttributeError at the first step (the native path
 reads ScanNet poses).
-
-Not ported yet, and refused with NotImplementedError before any work:
---train-mode ff and --load-points 0 (MVS bootstrap, ROADMAP Queue 1 item
-14).
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,19 +69,21 @@ from hybridneuralrendering_tpu_torch.data import native_sampler
 from hybridneuralrendering_tpu_torch.data.point_init import (
     voxel_downsample_closest)
 from hybridneuralrendering_tpu_torch.device import device_batch, resolve
+from hybridneuralrendering_tpu_torch.io import torch_import
 from hybridneuralrendering_tpu_torch.models import blur as blur_mod
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
 from hybridneuralrendering_tpu_torch.models import renderer
+from hybridneuralrendering_tpu_torch.mvs import point_gen
 from hybridneuralrendering_tpu_torch.ops import voxel_grid as VG
+from hybridneuralrendering_tpu_torch.train import bootstrap
 from hybridneuralrendering_tpu_torch.train import checkpoint as ckpt_mod
 from hybridneuralrendering_tpu_torch.train import lifecycle
 from hybridneuralrendering_tpu_torch.train import pyramid_cache as pc_mod
 from hybridneuralrendering_tpu_torch.train import state as state_mod
 from hybridneuralrendering_tpu_torch.train import step as step_mod
+from hybridneuralrendering_tpu_torch.train import step_ff
 from hybridneuralrendering_tpu_torch.utils import metrics as M
 from hybridneuralrendering_tpu_torch.utils.visualizer import Visualizer
-
-MVS_ITEM = "ROADMAP Queue 1 item 14"
 
 
 def build_argparser():
@@ -84,12 +96,13 @@ def build_argparser():
     p.add_argument("--name", default=None, help="run name (default: preset)")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--load-points", type=int, default=2,
-                   help="0: feed-forward MVS (not ported), 1: ply mesh, "
-                        "2: sensor depth")
+                   help="0: feed-forward MVS, 1: ply mesh, 2: sensor depth")
     p.add_argument("--vox-res", type=int, default=900,
                    help="voxel-downsample resolution for init points")
     p.add_argument("--mvs-ckpt", default=None,
-                   help="pretrained MVSNet checkpoint for mode 0")
+                   help="pretrained MVSNet checkpoint (reference layout, "
+                        "checkpoints/MVSNet/model_000014.ckpt) for mode 0 "
+                        "and --train-mode ff")
     p.add_argument("--max-groups", type=int, default=0,
                    help="cap on MVS view triplets in mode 0 (0 = all)")
     p.add_argument("--mvs-conf-thresh", type=float, default=0.8)
@@ -112,7 +125,9 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train-mode", choices=("per-scene", "ff"),
                    default="per-scene",
-                   help="'ff' (feed-forward MVS training) is not ported")
+                   help="'ff': feed-forward training, the MVS nets "
+                        "regenerate the cloud every step and train at "
+                        "mvs_lr (mvs_points_volumetric_model.py:49-152)")
     p.add_argument("--native-prefetch", type=int, default=0,
                    help="worker threads of the native batch sampler "
                         "(0 = numpy sampling; dilated sampling only)")
@@ -147,18 +162,6 @@ def build_argparser():
     return p
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError naming the ROADMAP item of a flag whose JAX
-    code the port does not have yet."""
-    if args.train_mode == "ff":
-        raise NotImplementedError(f"--train-mode ff (feed-forward MVS "
-                                  f"training) is not ported yet ({MVS_ITEM})")
-    if args.load_points not in (1, 2):
-        raise NotImplementedError(f"--load-points {args.load_points} (MVS "
-                                  f"bootstrap) is not ported yet "
-                                  f"({MVS_ITEM})")
-
-
 def configure(args) -> C.Config:
     """The preset with the CLI's overrides, as the JAX CLI applies them."""
     cfg = preset_config(args)
@@ -184,12 +187,74 @@ def configure(args) -> C.Config:
     return cfg
 
 
+def init_mvs(cfg: C.Config, seed: int, device, use_mvsnet: bool = True,
+             use_probnet: bool = False) -> point_gen.MvsPointsParams:
+    """The MVS networks' initial parameters on `device` (the pretrained
+    MVSNet, where --mvs-ckpt is given, replaces `mvsnet` after)."""
+    gen = torch.Generator().manual_seed(seed)
+    return point_gen.init(gen, cfg.points.feature_dim, use_mvsnet=use_mvsnet,
+                          use_probnet=use_probnet, device=device)
+
+
+def load_mvsnet(args, mvs_params, device) -> point_gen.MvsPointsParams:
+    """mvs_params with --mvs-ckpt's MVSNet in place of `mvsnet`, where the
+    flag is given."""
+    if not args.mvs_ckpt:
+        return mvs_params
+    sd = torch_import.load_torch_state_dict(args.mvs_ckpt)
+    return mvs_params._replace(mvsnet=torch_import.import_mvsnet(sd, device))
+
+
+def group_views(dataset, group) -> Tuple[np.ndarray, np.ndarray]:
+    """(images [3, H, W, 3], w2cs [3, 4, 4] float32) of a view triplet, its
+    entries positions in the training list."""
+    if hasattr(dataset, "train_id_list"):       # ScanNet
+        ids = [dataset.train_id_list[i] for i in group]
+        imgs = [dataset.image(v) for v in ids]
+        c2ws = [dataset._pose(v) for v in ids]
+    else:
+        imgs = [dataset.train_image(int(i)) for i in group]
+        c2ws = [dataset.c2w(int(i), dataset.train_meta) for i in group]
+    return (np.stack(imgs),
+            np.stack([np.linalg.inv(c) for c in c2ws]).astype(np.float32))
+
+
+def mvs_bootstrap(args, dataset, cfg: C.Config, device
+                  ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Mode 0 (gen_points_filter_embeddings, run/train_ft.py:60-197):
+    MVSNet depth per view triplet (--mvs-ckpt's weights, else init_mvs's),
+    the cross-triplet filter, the alpha mattes' visual hull where the
+    scene has them, the voxel downsample at --vox-res, and each point's
+    embedding, colour, direction and confidence (train/bootstrap)."""
+    mvs_params = load_mvsnet(args, init_mvs(cfg, args.seed, device), device)
+    groups = bootstrap.groups_from_dataset(dataset,
+                                           max_groups=args.max_groups)
+    views = [group_views(dataset, g) for g in groups]
+    alphas = alpha_w2cs = None
+    if hasattr(dataset, "train_alpha"):
+        vids = sorted({int(i) for g in groups for i in g})
+        alphas = np.stack([dataset.train_alpha(i) for i in vids])
+        alpha_w2cs = np.stack([np.linalg.inv(
+            dataset.c2w(i, dataset.train_meta)) for i in vids]
+        ).astype(np.float32)
+    return bootstrap.bootstrap_from_groups(
+        mvs_params, [v[0] for v in views], dataset.intrinsic,
+        [v[1] for v in views], cfg.render.near_plane, cfg.render.far_plane,
+        cfg, conf_thresh=args.mvs_conf_thresh, vox_res=args.vox_res,
+        num_depths=args.mvs_num_depths, alphas=alphas,
+        alpha_w2cs=alpha_w2cs, device=device)
+
+
 def bootstrap_points(args, dataset, cfg: C.Config
-                     ) -> np.ndarray:
-    """The initial cloud xyz [M, 3] (run/train_ft.py:679-778): the PLY mesh
-    (mode 1) or every frame's sensor depth (mode 2), voxel-downsampled at
-    --vox-res (the point closest to each voxel's centroid), then cut to
-    --bootstrap-cap (default num_points) by a seeded choice."""
+                     ) -> Tuple[np.ndarray, Optional[Dict[str, np.ndarray]]]:
+    """The initial cloud (run/train_ft.py:679-778): (xyz [M, 3], attrs).
+    Mode 0 is mvs_bootstrap on --device, with attrs, not cut.  Modes 1 and
+    2 (the PLY mesh, every frame's sensor depth) give attrs None, their
+    cloud voxel-downsampled at --vox-res (the point closest to each
+    voxel's centroid), then cut to --bootstrap-cap (default num_points)
+    by a seeded choice."""
+    if args.load_points == 0:
+        return mvs_bootstrap(args, dataset, cfg, resolve(args.device))
     if args.load_points == 1:
         xyz = dataset.load_init_points()
     else:
@@ -201,7 +266,7 @@ def bootstrap_points(args, dataset, cfg: C.Config
         keep = np.random.default_rng(args.seed).choice(
             len(xyz), cap, replace=False)
         xyz = xyz[keep]
-    return xyz
+    return xyz, None
 
 
 def init_params(cfg: C.Config, seed: int, device) -> Dict:
@@ -247,10 +312,80 @@ def evaluate(params, points, grid, test_ds, cfg: C.Config,
     return mean_psnr
 
 
-def main(argv=None) -> state_mod.TrainState:
-    """Train one scene; returns the final TrainState."""
+def train_ff(args, cfg: C.Config, train_ds, vis: Visualizer, ckpt_dir: str,
+             device) -> step_ff.FFTrainState:
+    """Feed-forward training (the JAX CLI's train_ff; reference
+    mvs_points_volumetric_model.py:49-152): each step picks a random view
+    triplet, regenerates its cloud through the MVS networks and trains
+    them with the renderer on a ray batch of the triplet's first view
+    (train/step_ff).  Without --mvs-ckpt the depth is the learned ProbNet
+    volume's (conf threshold 0); with it, the pretrained MVSNet's at
+    --mvs-conf-thresh.  Prints every --print-freq steps, saves
+    ff_{step:08d}.npz every --save-freq steps and at the end; returns the
+    state."""
+    rng = np.random.default_rng(args.seed)
+    learned = args.mvs_ckpt is None
+    mvs_params = load_mvsnet(args, init_mvs(
+        cfg, args.seed, device, use_mvsnet=not learned,
+        use_probnet=learned), device)
+    ffs = step_ff.create_ff_state(init_params(cfg, args.seed + 1, device),
+                                  mvs_params, cfg, device=device)
+    # the grid's geometry pinned to the querier's ranges: the cloud moves
+    # every step, the tables keep their shapes
+    r = np.asarray(cfg.querier.ranges, np.float32)
+    geom = VG.compute_grid_geometry(np.stack([r[:3], r[3:]]),
+                                    np.ones(2, bool), cfg.querier,
+                                    device=device)
+    groups = bootstrap.groups_from_dataset(train_ds,
+                                           max_groups=args.max_groups)
+    group_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def group_arrays(gi):
+        if gi not in group_cache:
+            images, w2cs = group_views(train_ds, groups[gi])
+            group_cache[gi] = device_batch(
+                {"images": images, "w2cs": w2cs,
+                 "intrinsic": train_ds.intrinsic}, device)
+        return group_cache[gi]
+
+    max_steps = args.max_steps or cfg.optim.maximum_step
+    vis.log(f"feed-forward training: {max_steps} steps over "
+            f"{len(groups)} view groups "
+            f"({'ProbNet' if learned else 'MVSNet'} depth)")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    R, Z = cfg.sampling.rays_per_batch, cfg.querier.z_depth_dim
+    t0 = time.time()
+    step = ffs.step
+    while step < max_steps:
+        gi = int(rng.integers(len(groups)))
+        # a position in train_id_list read as an index into id_list, as
+        # in JAX (the blur-list quirk, ROADMAP Queue 3)
+        b = train_ds.get_batch(int(groups[gi][0]), rng)
+        ray_batch = device_batch({k: b[k] for k in step_ff.RAY_KEYS
+                                  if k in b}, device)
+        ffs, items = step_ff.train_step_ff(
+            ffs, group_arrays(gi), ray_batch, geom, cfg,
+            step_noise(gen, step, 1, R, Z, device)[0],
+            num_depths=args.mvs_num_depths, learned=learned,
+            conf_thresh=0.0 if learned else args.mvs_conf_thresh)
+        step = ffs.step
+        if step % args.print_freq == 0:
+            vis.accumulate_losses({k: float(v) for k, v in items.items()
+                                   if k.startswith("loss")})
+            sps = step / max(time.time() - t0, 1e-9)
+            vis.print_losses(step, extra=f"steps/s={sps:.2f} "
+                             f"pts={int(items['num_points'])}")
+        if (args.save_freq > 0 and step % args.save_freq == 0) \
+                or step >= max_steps:
+            step_ff.save_ff_checkpoint(ckpt_dir, ffs)
+    vis.log(f"done: {max_steps} feed-forward steps")
+    return ffs
+
+
+def main(argv=None) -> Union[state_mod.TrainState, step_ff.FFTrainState]:
+    """Train one scene; returns the final TrainState (the FFTrainState
+    with --train-mode ff)."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     dev = resolve(args.device)
     cfg = configure(args)
     name = args.name or cfg.name
@@ -272,19 +407,29 @@ def main(argv=None) -> state_mod.TrainState:
     train_ds = scene(args.data_root, args.scan, cfg, "train")
     test_ds = scene(args.data_root, args.scan, cfg, "test")
     rng = np.random.default_rng(args.seed)
+    if args.train_mode == "ff":
+        return train_ff(args, cfg, train_ds, vis, ckpt_dir, dev)
 
     vis.log(f"bootstrapping points (mode {args.load_points})...")
-    xyz = bootstrap_points(args, train_ds, cfg)
+    xyz, attrs = bootstrap_points(args, train_ds, cfg)
     vis.log(f"init cloud: {len(xyz)} points")
     if args.drop_box is not None:
         lo, hi = np.asarray(args.drop_box[:3]), np.asarray(args.drop_box[3:])
         inside = np.all((xyz >= lo) & (xyz <= hi), axis=1)
         xyz = xyz[~inside]
+        if attrs is not None:
+            attrs = {k: v[~inside] for k, v in attrs.items()}
         vis.log(f"drop-box removed {int(inside.sum())} points "
                 f"(hole for lifecycle runs; {len(xyz)} remain)")
-    points = npts.init_from_arrays(
-        xyz, cfg.points, embedding=init_embedding(len(xyz), cfg, args.seed),
-        device=dev)
+    if attrs is not None and len(xyz) > cfg.points.num_points:
+        # mode 0's cloud is cut here, by the run's own generator (JAX
+        # cli/train.py:376-379)
+        keep = rng.choice(len(xyz), cfg.points.num_points, replace=False)
+        xyz = xyz[keep]
+        attrs = {k: v[keep] for k, v in attrs.items()}
+    if attrs is None:
+        attrs = {"embedding": init_embedding(len(xyz), cfg, args.seed)}
+    points = npts.init_from_arrays(xyz, cfg.points, device=dev, **attrs)
     grid = VG.grid_of(points.xyz, points.mask, cfg.querier)
     if grid.num_nodes is not None and \
             int(grid.num_nodes) >= cfg.querier.max_nodes:

@@ -3,12 +3,14 @@ paths.py; reference utils/util.py:34-63).
 
 Host-side numpy: euler-angle and position interpolation between key
 cameras, with the angles unwrapped against the first key's, giving a
-closed fly-through.  The arithmetic is the JAX package's, so the poses
-agree bit for bit.  `build_view_triplets` (the MVS initialiser's view
-groups) is not ported.
+closed fly-through; and the view triplets of the MVS bootstrap
+(`build_view_triplets`).  The arithmetic is the JAX package's, so the
+poses and the triplets agree bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 
@@ -71,3 +73,27 @@ def gen_render_path(c2ws: np.ndarray, n_views: int = 30) -> np.ndarray:
         c2w[:3, 3] = p
         out.append(c2w)
     return np.stack(out)
+
+
+def build_view_triplets(cam_positions: np.ndarray,
+                        max_groups: int = 0) -> List[Tuple[int, int, int]]:
+    """Groups of 3 nearby cameras for the MVS bootstrap (JAX
+    data/paths.py:82-104): each camera with its two nearest neighbours, as
+    sorted triplets in camera order, each triplet once; at most
+    `max_groups` of them when it is > 0.  [] for fewer than 3 cameras."""
+    n = len(cam_positions)
+    if n < 3:
+        return []
+    d = np.linalg.norm(cam_positions[:, None] - cam_positions[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    seen = set()
+    groups: List[Tuple[int, int, int]] = []
+    for i in range(n):
+        nb = np.argsort(d[i])[:2]
+        tri = tuple(sorted((i, int(nb[0]), int(nb[1]))))
+        if tri not in seen:
+            seen.add(tri)
+            groups.append(tri)
+        if max_groups and len(groups) >= max_groups:
+            break
+    return groups

@@ -6,8 +6,10 @@ tree with checks and no reshuffling:
   - a conv `w` is HWIO over NHWC maps;
   - the point table is [N, table_width] f32 with columns
     xyz | embedding | conf | color | dirs | zero pad.
-RAFT is the exception: the port's RAFT is the reference's nn.Module, so
-raft_from_numpy renames JAX's leaves and turns its HWIO convs to OIHW.
+The MVS networks' MvsPointsParams carry over field by field, an absent
+part (None) staying None.  RAFT is the exception: the port's RAFT is the
+reference's nn.Module, so raft_from_numpy renames JAX's leaves and turns
+its HWIO convs to OIHW.
 Inputs are numpy arrays (np.asarray of the JAX leaves), so this module
 needs no JAX.
 """
@@ -22,6 +24,7 @@ import torch
 from hybridneuralrendering_tpu_torch.device import resolve
 from hybridneuralrendering_tpu_torch.flow import raft as raft_mod
 from hybridneuralrendering_tpu_torch.models import neural_points as npts
+from hybridneuralrendering_tpu_torch.mvs import point_gen
 from hybridneuralrendering_tpu_torch.train import state as state_mod
 
 
@@ -45,6 +48,18 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         return torch.tensor(arr, dtype=torch.float32, device=dev)
 
     return walk(tree)
+
+
+def mvs_params_from_numpy(params, device="cuda") -> point_gen.MvsPointsParams:
+    """JAX's MvsPointsParams (feature, mvsnet, premlp, cost_reg, prob_net;
+    numpy leaves, absent parts None) -> the port's, tensors on
+    `device`."""
+    if len(params) != len(point_gen.MvsPointsParams._fields):
+        raise ValueError(f"{len(params)} parts, MvsPointsParams has "
+                         f"{len(point_gen.MvsPointsParams._fields)}")
+    return point_gen.MvsPointsParams(*(
+        None if part is None else params_from_numpy(part, device)
+        for part in params))
 
 
 def points_from_numpy(table: np.ndarray, mask: np.ndarray, feature_dim: int,

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from hybridneuralrendering_tpu_torch.config import Config
+from hybridneuralrendering_tpu_torch.config import Config, OptimConfig
 from hybridneuralrendering_tpu_torch.core import bg_plane
 from hybridneuralrendering_tpu_torch.device import HOST_KEYS, no_tf32
 from hybridneuralrendering_tpu_torch.models import blur as blur_mod
@@ -40,7 +40,7 @@ from hybridneuralrendering_tpu_torch.models import renderer
 from hybridneuralrendering_tpu_torch.ops.adam import adam_scalars, adam_table
 from hybridneuralrendering_tpu_torch.ops.voxel_grid import PointGrid
 from hybridneuralrendering_tpu_torch.train.state import (
-    TrainState, lr_schedule, tree_leaves, tree_map)
+    AdamState, TrainState, lr_schedule, tree_leaves, tree_map)
 
 
 def device_batch(batch: Dict) -> Dict:
@@ -210,14 +210,15 @@ def multi_loss_and_grads(state: TrainState, grid: PointGrid, batches: Dict,
 
 
 @torch.no_grad()
-def _adam_net(state: TrainState, g_net: Dict, cfg: Config) -> None:
-    """optax.adam over the network leaves, in place: the arithmetic of
-    ops/adam.adam_table_plain as torch._foreach_* operations."""
-    o = cfg.optim
-    opt = state.opt_net
-    s = adam_scalars(opt.count, opt.count, lr_schedule(o.lr, o), o.beta1,
+def adam_tree(params, grads, opt: AdamState, base_lr: float,
+              o: OptimConfig) -> None:
+    """optax.adam under lr_schedule(base_lr) over the tensors of `params`
+    (any nesting tree_leaves walks; `grads` and the moments nested
+    alike), in place: the arithmetic of ops/adam.adam_table_plain as
+    torch._foreach_* operations."""
+    s = adam_scalars(opt.count, opt.count, lr_schedule(base_lr, o), o.beta1,
                      o.beta2)
-    p, g = tree_leaves(state.params), tree_leaves(g_net)
+    p, g = tree_leaves(params), tree_leaves(grads)
     mu, nu = tree_leaves(opt.mu), tree_leaves(opt.nu)
     torch._foreach_mul_(mu, s.b1)
     torch._foreach_add_(mu, torch._foreach_mul(g, s.c1))
@@ -233,6 +234,10 @@ def _adam_net(state: TrainState, g_net: Dict, cfg: Config) -> None:
     torch._foreach_mul_(upd, s.neg_lr)
     torch._foreach_add_(p, upd)
     opt.count += 1
+
+
+def _adam_net(state: TrainState, g_net: Dict, cfg: Config) -> None:
+    adam_tree(state.params, g_net, state.opt_net, cfg.optim.lr, cfg.optim)
 
 
 @torch.no_grad()

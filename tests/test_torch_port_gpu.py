@@ -6,8 +6,9 @@ on int32 and within ops/scan.tolerance on float32), the voxel grid, a
 render and a training step (uncached and cached; also with the learnable
 blur kernel) on the card against the same on the CPU, the per-voxel K-NN
 against the CPU and the supervoxel path, the native batch sampler built
-on this machine, the frustum query, the edit render with rw2c and RAFT
-against the CPU.  They skip where torch.cuda.is_available() is false.
+on this machine, the frustum query, the edit render with rw2c, RAFT, the
+MVS point generation and a feed-forward step against the CPU.  They skip
+where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -1390,3 +1391,94 @@ def test_raft_one_iteration_on_card_matches_cpu(cuda):
     assert torch.isfinite(flows["cuda"]).all()
     torch.testing.assert_close(flows["cuda"], flows["cpu"], rtol=1e-3,
                                atol=5e-2)
+
+
+def _ff_case(dev, learned):
+    """test_torch_port_ff.py's case without JAX: tiny_test without fusion,
+    drop or blur, near 1 / far 3, three 32x40 views, seeded MVS networks
+    and renderer, the rays and noise from seeded CPU generators."""
+    from hybridneuralrendering_tpu_torch.mvs import point_gen
+    from hybridneuralrendering_tpu_torch.train import step_ff
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(
+        agg=dataclasses.replace(cfg.agg, use_nearest=0, drop_ratio=0.0),
+        render=TC.RenderConfig(near_plane=1.0, far_plane=3.0),
+        blur=TC.BlurConfig(add_blur_sim=False))
+    g = torch.Generator().manual_seed(0)
+    V, H, W = 3, 32, 40
+    w2cs = torch.eye(4).repeat(V, 1, 1)
+    w2cs[1:, :3, 3] = torch.randn(V - 1, 3, generator=g) * 0.05
+    group = {"images": torch.rand(V, H, W, 3, generator=g),
+             "intrinsic": torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2],
+                                        [0, 0, 1]]), "w2cs": w2cs}
+    R = cfg.sampling.rays_per_batch
+    dirs = torch.randn(R, 3, generator=g)
+    dirs[:, 2] = dirs[:, 2].abs() + 1.0
+    rays = {"campos": torch.zeros(3), "camrotc2w": torch.eye(3),
+            "raydir": dirs / dirs.norm(dim=-1, keepdim=True),
+            "gt_image": torch.rand(R, 3, generator=g),
+            "bg_color": torch.ones(3)}
+    noise = torch.rand(R, cfg.querier.z_depth_dim, generator=g)
+    mvs = point_gen.init(torch.Generator().manual_seed(1), 8,
+                         use_mvsnet=not learned, use_probnet=learned)
+    state = step_ff.create_ff_state(
+        renderer.init_params(cfg, seed=2, device="cpu"), mvs, cfg,
+        device=dev)
+    geom = TVG.compute_grid_geometry(torch.zeros(1, 3).numpy(),
+                                     torch.zeros(1, dtype=torch.bool).numpy(),
+                                     cfg.querier, device=dev)
+
+    def to(d):
+        return {k: v.to(dev) for k, v in d.items()}
+    return cfg, state, to(group), to(rays), geom, noise.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("learned", [True, False])
+def test_gen_points_on_card_matches_cpu(cuda, learned):
+    """The group's depth, confidence and points (learned ProbNet and
+    pretrained-MVSNet mode, D = 16) on the card (float32 convolutions
+    without TF32) against the CPU's: rtol 1e-4 / atol 1e-4 * max."""
+    from hybridneuralrendering_tpu_torch.device import no_tf32
+    from hybridneuralrendering_tpu_torch.mvs import point_gen
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, state, group, _, _, _ = _ff_case(dev, learned)
+        with no_tf32():
+            out[dev.type] = point_gen.gen_points(
+                state.mvs_params, group["images"], group["intrinsic"],
+                group["w2cs"], 1.0, 3.0, 16, conf_thresh=0.0,
+                learned=learned)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        a = a.cpu()
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("learned", [True, False])
+def test_train_step_ff_on_card_matches_cpu(cuda, learned):
+    """One feed-forward step on the card (the K-min, row-scan, chain and
+    segment-sum kernels, the MVS nets in float32 without TF32) against the
+    CPU's plain versions: the loss rtol 1e-4, each group's gradient norm
+    rtol 1e-3, and the kernels launched."""
+    from hybridneuralrendering_tpu_torch.train import step_ff
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, state, group, rays, geom, noise = _ff_case(dev, learned)
+        before = TS.k_smallest.launches, TSS.segment_sum.launches
+        items, g_net, g_mvs = step_ff.loss_and_grads_ff(
+            state, group, rays, geom, cfg, noise, 8, learned, 0.0)
+        if dev.type == "cuda":
+            assert TS.k_smallest.launches == before[0] + 1
+            assert TSS.segment_sum.launches == before[1] + 1
+        norms = [torch.sqrt(sum((x.double() ** 2).sum() for x in
+                                tstate.tree_leaves(g))).item()
+                 for g in (g_net, g_mvs)]
+        res[dev.type] = (float(items["loss_total"]), norms)
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-4)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert b > 0 and a == pytest.approx(b, rel=1e-3)

@@ -202,9 +202,9 @@ def test_bootstrap_points_bitwise(scene, mp, mode, cap):
     jc, tc = _preset(JC), _preset(TC)
     want, attrs = jcli.bootstrap_points(
         jargs, jscannet.ScannetScene(root, scan, jc, "train"), jc)
-    got = tcli.bootstrap_points(
+    got, tattrs = tcli.bootstrap_points(
         targs, tscannet.ScannetScene(root, scan, tc, "train"), tc)
-    assert attrs is None
+    assert attrs is None and tattrs is None
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert len(got) == (cap if cap else len(got)) and len(got) > 250
 
@@ -298,14 +298,27 @@ def test_final_checkpoint_loads_in_both(runs):
     assert int(jst.points.num_live) == tst.points.num_live
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--train-mode", "ff"], "item 14"), (["--load-points", "0"], "item 14")])
-def test_unported_flags_raise_before_any_work(tmp_path, flags, item):
-    argv = ["--data-root", str(tmp_path / "none"), "--checkpoints-dir",
-            str(tmp_path / "ck"), "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        tcli.main(argv)
-    assert not os.path.exists(tmp_path / "ck")
+@pytest.mark.parametrize("flags", [
+    ["--train-mode", "ff", "--mvs-num-depths", "8"],
+    ["--load-points", "0", "--mvs-num-depths", "8", "--mvs-conf-thresh",
+     "0", "--vox-res", "0"]])
+def test_mvs_flags_run_and_default_to_the_card(scene, tmp_path, flags):
+    """The flags refused before the MVS port now train (one step on the
+    CPU), and without --device they ask for the card, as every entry
+    point does."""
+    _, root, scan = scene
+    argv = ["--preset", PRESET, "--data-root", root, "--scan", scan,
+            "--checkpoints-dir", str(tmp_path), "--max-steps", "1",
+            "--test-freq", "0", "--save-freq", "0", "--name", "mvs"] + flags
+    st = tcli.main(argv + ["--device", "cpu"])
+    assert st.step == 1
+    ckpts = os.listdir(tmp_path / "mvs" / "ckpt")
+    assert ("ff_00000001.npz" if "ff" in flags else "1_state.npz") in ckpts
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(argv + ["--name", "mvs_card"])
+    assert not os.path.exists(tmp_path / "mvs_card")
 
 
 def test_entry_point_defaults_to_the_card(scene, tmp_path):

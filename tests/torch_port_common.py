@@ -175,3 +175,80 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def numpy_mvs_params(jax_init, seed=0):
+    """numpy_params for the MVS networks, with each batch norm's `var`
+    drawn in [0.5, 1.5] and `scale` in [0.8, 1.2] (numpy_params draws a
+    1-D leaf in +-0.1, and a negative variance has no rsqrt).  Works on
+    a tree or on JAX's MvsPointsParams (its None parts kept)."""
+    tree = numpy_params(jax_init, seed)
+    rng = np.random.default_rng(seed + 1000)
+
+    def fix(node):
+        if isinstance(node, dict):
+            if set(node) == {"scale", "bias", "mean", "var"}:
+                return dict(node, var=rng.uniform(
+                    0.5, 1.5, node["var"].shape).astype(np.float32),
+                    scale=rng.uniform(0.8, 1.2, node["scale"].shape)
+                    .astype(np.float32))
+            return {k: fix(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(None if v is None else fix(v) for v in node))
+        if isinstance(node, list):
+            return [fix(v) for v in node]
+        return node
+
+    return fix(tree)
+
+
+def jax_tree(tree):
+    """A numpy tree (or MvsPointsParams) as JAX arrays."""
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def mvsnet_state_dict(seed=0):
+    """A seeded state_dict of the official MVSNet under the reference's
+    names (JAX io/torch_import.py:79-111 reads them; the trainer saves
+    them `module.`-prefixed in {"model": ...}): numpy float32 arrays in
+    torch's layouts, batch norms with positive variances."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, o, i, *k, bias=False):
+        lim = np.sqrt(6.0 / (i * np.prod(k) + o * np.prod(k)))
+        sd[f"{name}.weight"] = rng.uniform(-lim, lim, (o, i) + k)
+        if bias:
+            sd[f"{name}.bias"] = rng.uniform(-0.1, 0.1, o)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.8, 1.2, c)
+        sd[f"{name}.bias"] = rng.uniform(-0.1, 0.1, c)
+        sd[f"{name}.running_mean"] = rng.uniform(-0.1, 0.1, c)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c)
+
+    for i, (cin, cout, k) in enumerate([(3, 8, 3), (8, 8, 3), (8, 16, 5),
+                                        (16, 16, 3), (16, 16, 3),
+                                        (16, 32, 5), (32, 32, 3)]):
+        conv(f"feature.conv{i}.conv", cout, cin, k, k)
+        bn(f"feature.conv{i}.bn", cout)
+    conv("feature.feature", 32, 32, 3, 3, bias=True)
+    cr = "cost_regularization"
+    for i, (cin, cout) in enumerate([(32, 8), (8, 16), (16, 16), (16, 32),
+                                     (32, 32), (32, 64), (64, 64)]):
+        conv(f"{cr}.conv{i}.conv", cout, cin, 3, 3, 3)
+        bn(f"{cr}.conv{i}.bn", cout)
+    for i, (cin, cout) in ((7, (64, 32)), (9, (32, 16)), (11, (16, 8))):
+        # ConvTranspose3d weights are [in, out, kd, kh, kw]
+        conv(f"{cr}.conv{i}.0", cin, cout, 3, 3, 3)
+        bn(f"{cr}.conv{i}.1", cout)
+    conv(f"{cr}.prob", 1, 8, 3, 3, 3, bias=True)
+    return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
+def save_mvsnet_ckpt(path, sd):
+    """`sd` as the MVSNet trainer saves it: {"model": {"module.<name>":
+    tensor}} through torch.save."""
+    torch.save({"model": {f"module.{k}": torch.as_tensor(v)
+                          for k, v in sd.items()}}, str(path))
+    return str(path)

@@ -164,6 +164,25 @@ Phases, each printing one JSON progress line:
                  CPU (loss, each Adam group's gradient norm) and the
                  generated table detached from the MVS nets, which it
                  must reject.
+ 19. parallel  after the NeRF phases, data parallel (parallel/) at
+                 train_config() on a scene of 600,000 - 64 points:
+                 parallel_one_rank, one NCCL rank: under deterministic
+                 algorithms the ray-sharded step and the frame-sharded
+                 train_step_multi (F = 2) equal the plain steps bit for
+                 bit (items, gradients, the state after), without them
+                 their gradients beside the plain step's run-to-run
+                 spread; 1 + 5 sharded steps against 5 plain ones in
+                 turns, each with the plain step's launches, and the
+                 collectives alone; parallel_two_ranks, two processes of
+                 this script (--parallel-rank) on gloo sharing the card
+                 (1,568 rays a rank): the sharded step and F = 2 within
+                 PARALLEL_LOSS_TOL / PARALLEL_NORM_TOL of the single
+                 process with equal state digests, three planted faults
+                 rejected (the all-reduce left out, a per-rank loss with
+                 no gather, every rank on noise rows 0 ... R / 2), timed
+                 steps, and the dry run (step, grow 64, prune, a rank-0
+                 checkpoint restored on both, step); each rank's
+                 launches and peak memory come back to the parent.
 `--profile` adds a torch.profiler pass over one more request, one more
 training step and one more cached step, each with the blur bank and with
 the learnable kernel, one more NeRF request and NeRF step, and one more
@@ -173,8 +192,8 @@ the kernels that took the most device time.
 The last lines are the kernel table ({"kernels": [...]}; `launches` sums
 the serve, serve_pervoxel, train, train_cached, train_learnable, eval_cli,
 train_cli, serve_nerf, train_nerf, train_cli_nerf, serve_knobs,
-render_vid, visualize, render_vid_nerf, query_pers, edit, mvs_bootstrap
-and train_ff runs), the card as
+render_vid, visualize, render_vid_nerf, query_pers, edit, mvs_bootstrap,
+train_ff and parallel runs, the latter's ranks included), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.  Any failure exits
 non-zero before those lines.  The port's float32 matmuls and convolutions run
 without TF32 (torch.backends.cuda.matmul.allow_tf32 stays False; serving
@@ -4193,15 +4212,494 @@ def phase_profile_train(cfg, st, grid, batch, bank, staged, learnable):
         img_feat_staged=lstaged))
 
 
+# the parallel phase (ROADMAP item 15): train_config() on a scene of
+# 600,000 - 64 points, so that the dry run's 64 grown points fit the
+# capacity; two ranks share the card on gloo
+PARALLEL_RANKS = 2
+PARALLEL_GROW = 64
+PARALLEL_TIMED = 5
+PARALLEL_RANK_TIMED = 3
+# two ranks against the single process: sums of per-rank partials in
+# another float32 order (the CPU tests read loss 0 and norms <= 2e-8 at
+# tiny_test; the planted faults 1.3e-2 and 0.13 or more)
+PARALLEL_LOSS_TOL, PARALLEL_NORM_TOL = 1e-5, 1e-4
+PARALLEL_CHILD_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_inputs(cfg, n):
+    """n batches of the synthetic scene and their candidate noise, drawn
+    alike in every process from seeds."""
+    import torch
+    from hybridneuralrendering_tpu_torch.data import synthetic
+    batches = [synthetic.make_synthetic_batch(cfg, seed=30 + i,
+                                              device=DEVICE)
+               for i in range(n)]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    noise = [torch.rand((cfg.sampling.rays_per_batch,
+                         cfg.querier.z_depth_dim), generator=gen,
+                        device=DEVICE) for _ in range(n)]
+    return batches, noise
+
+
+def _grads_summary(res):
+    """(items, g_net, g_table) -> the loss and each Adam group's gradient
+    norm, as floats."""
+    import torch
+    from hybridneuralrendering_tpu_torch.train.state import tree_leaves
+    items, g_net, g_table = res
+    net = torch.sqrt(sum(torch.sum(t.double() ** 2)
+                         for t in tree_leaves(g_net)))
+    return {"loss": float(items["loss_total"]), "net_norm": float(net),
+            "table_norm": float(torch.linalg.vector_norm(g_table.double()))}
+
+
+def _differing(a, b):
+    """Names of the parts of two (items, g_net, g_table) that are not
+    equal bit for bit."""
+    import torch
+    from hybridneuralrendering_tpu_torch.train.state import tree_leaves
+    bad = [k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+    bad += [f"net leaf {i}" for i, (x, y) in enumerate(zip(
+        tree_leaves(a[1]), tree_leaves(b[1]))) if not torch.equal(x, y)]
+    return bad + ([] if torch.equal(a[2], b[2]) else ["table gradient"])
+
+
+def _state_differing(a, b):
+    import torch
+    from hybridneuralrendering_tpu_torch.train.state import tree_leaves
+    pairs = [("table", a.points.table, b.points.table),
+             ("mu", a.opt_pts.mu, b.opt_pts.mu),
+             ("nu", a.opt_pts.nu, b.opt_pts.nu)]
+    pairs += [(f"param {i}", x, y) for i, (x, y) in enumerate(zip(
+        tree_leaves(a.params), tree_leaves(b.params)))]
+    pairs += [(f"net moment {i}", x, y) for i, (x, y) in enumerate(zip(
+        tree_leaves(a.opt_net.mu) + tree_leaves(a.opt_net.nu),
+        tree_leaves(b.opt_net.mu) + tree_leaves(b.opt_net.nu)))]
+    return [k for k, x, y in pairs if not torch.equal(x, y)]
+
+
+def _one_step_launches(launches):
+    """A plain uncached step's launches (phase train): one K-min, two
+    segment sums, one table Adam, one of each chain kernel, no row scan."""
+    want = dict.fromkeys(launches, 1)
+    want["segment_sum"], want["cumsum_rows"] = 2, 0
+    return want
+
+
+class _Deterministic:
+    """torch's deterministic algorithms inside a `with` block, cuBLAS on
+    its fixed workspace.  Without them the plain step is not bit for bit
+    repeatable on the card (two runs differ by 1e-7 relative in the chain's
+    gradients and 5e-3 in the pyramid's: PERF.md §7); with them two
+    runs are, and no op of the step lacks a deterministic version (an op
+    that did would raise)."""
+
+    def __enter__(self):
+        import torch
+        self.env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        self.prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(self.prev)
+        if self.env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.env
+
+
+def _max_rel_diff(a, b):
+    """The largest relative difference, max|x - y| / max|y|, over the
+    network's gradient leaves and over the table's gradient."""
+    from hybridneuralrendering_tpu_torch.train.state import tree_leaves
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+
+    return {"net": max(rel(x, y) for x, y in zip(tree_leaves(a[1]),
+                                                 tree_leaves(b[1]))),
+            "table": rel(a[2], b[2])}
+
+
+def phase_parallel_one_rank(cfg):
+    """(a) One NCCL rank at train_config(): under deterministic
+    algorithms (_Deterministic) the ray-sharded step and the frame-sharded
+    train_step_multi (F = 2) from one state and one noise equal the plain
+    steps bit for bit (loss items, every gradient, the state after a
+    step); without them the sharded step's gradients against the plain's
+    beside the plain step's own run-to-run spread.  Then 1 warm-up and
+    PARALLEL_TIMED timed sharded steps against as many plain steps, each
+    with the plain step's launches, and the collectives alone at the
+    step's sizes."""
+    import torch
+    import torch.distributed as dist
+    from hybridneuralrendering_tpu_torch.parallel import distributed as D
+    from hybridneuralrendering_tpu_torch.parallel import mesh as M
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    from hybridneuralrendering_tpu_torch.train.state import tree_leaves
+    t_setup = time.perf_counter()
+    if not D.initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl"):
+        raise RuntimeError("initialize made no process group")
+    try:
+        mesh = D.global_mesh(cfg.parallel)
+        torch.cuda.reset_peak_memory_stats()
+        st, grid, bank = D.replicated_start(
+            cfg, cfg.points.num_points - PARALLEL_GROW, mesh, DEVICE)
+        batches, noise = _parallel_inputs(cfg, PARALLEL_TIMED + 1)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        clone = D.clone_state
+        step = M.make_sharded_train_step(mesh, cfg)
+        frames = TT.stack_batches(batches[:2])
+        fnoise = torch.stack(noise[:2])
+
+        def plain_rays():
+            return TT.loss_and_grads(clone(st), grid, batches[0], bank, cfg,
+                                     noise=noise[0])
+
+        def sharded_rays():
+            return M.sharded_loss_and_grads(mesh, clone(st), grid,
+                                            batches[0], bank, cfg,
+                                            noise=noise[0])
+
+        with _Deterministic():
+            differs = {
+                "rays": _differing(plain_rays(), sharded_rays()),
+                "frames": _differing(
+                    TT.multi_loss_and_grads(clone(st), grid, frames, bank,
+                                            cfg, noise=fnoise),
+                    D.sharded_multi_loss_and_grads(clone(st), grid, frames,
+                                                   bank, cfg, mesh,
+                                                   noise=fnoise))}
+            a, b = clone(st), clone(st)
+            TT.train_step(a, grid, batches[0], bank, cfg, noise=noise[0])
+            step(b, grid, batches[0], bank, noise=noise[0])
+            differs["state_after"] = _state_differing(a, b)
+            del a, b
+        if any(differs.values()):
+            raise AssertionError(f"one NCCL rank differs from the plain "
+                                 f"steps: {differs}")
+        ref = plain_rays()
+        default_mode = {"plain_again": _max_rel_diff(plain_rays(), ref),
+                        "sharded": _max_rel_diff(sharded_rays(), ref)}
+        del ref
+        plain_st, sharded_st = clone(st), clone(st)
+        t0 = time.perf_counter()
+        TT.train_step(plain_st, grid, batches[0], bank, cfg, noise=noise[0])
+        step(sharded_st, grid, batches[0], bank, noise=noise[0])
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+        fns = {"sharded": lambda b, n_: step(sharded_st, grid, b, bank,
+                                             noise=n_),
+               "plain": lambda b, n_: TT.train_step(plain_st, grid, b, bank,
+                                                    cfg, noise=n_)}
+        ms = {k: [] for k in fns}
+        counts = {k: dict.fromkeys(read_launches(), 0) for k in fns}
+        # in turns: plain, sharded, then sharded, plain
+        for i, (b, n_) in enumerate(zip(batches[1:], noise[1:])):
+            for name in sorted(fns, reverse=i % 2 == 1):
+                reset_launches()
+                t0 = time.perf_counter()
+                fns[name](b, n_)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                for k, v in read_launches().items():
+                    counts[name][k] += v
+        timed = {k: (_stats(ms[k]), counts[k]) for k in fns}
+        launches = timed["sharded"][1]
+        want = {k: v * PARALLEL_TIMED
+                for k, v in _one_step_launches(launches).items()}
+        if launches != want or timed["plain"][1] != want:
+            raise AssertionError(f"sharded steps launched {launches}, "
+                                 f"plain {timed['plain'][1]}, want {want}")
+        # the step's collectives alone: the table gradient's all_reduce,
+        # the network gradient's (one flat buffer) and the gathers
+        g_table = torch.zeros_like(st.points.table)
+        flat = torch.zeros(sum(t.numel() for t in tree_leaves(st.params)),
+                           device=DEVICE)
+        out = {k: torch.zeros(s, device=DEVICE) for k, s in (
+            ("coarse_raycolor", (cfg.sampling.rays_per_batch, 3)),
+            ("conf_coefficient", (cfg.sampling.rays_per_batch,
+                                  cfg.querier.SR, cfg.querier.K)))}
+        collectives = {
+            "all_reduce_table_ms": cuda_ms(lambda: dist.all_reduce(g_table),
+                                           10),
+            "all_reduce_net_ms": cuda_ms(lambda: dist.all_reduce(flat), 10),
+            "gathers_ms": cuda_ms(lambda: [M.gather_rows(v, mesh)
+                                           for v in out.values()], 10)}
+        s_med, p_med = timed["sharded"][0]["median"], \
+            timed["plain"][0]["median"]
+        log("parallel_one_rank", backend="nccl", world=1,
+            setup_seconds=setup_s, points=int(st.points.num_live),
+            bitwise_deterministic=differs,
+            default_mode_max_rel_diff=default_mode, warmup_ms=warmup_ms,
+            sharded_step_ms=timed["sharded"][0],
+            plain_step_ms=timed["plain"][0],
+            overhead_ms=s_med - p_med, overhead_share=s_med / p_med - 1,
+            **collectives, launches=launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_child(rank: int, port: int, workdir: str) -> int:
+    """One of the PARALLEL_RANKS gloo ranks of phase parallel_two_ranks
+    (chip_smoke.py --parallel-rank): the state broadcast from rank 0, then
+    from one state and noise, under deterministic algorithms, the
+    single-process reference and the ray-sharded step, the planted faults,
+    the frame-sharded train_step_multi (F = 2, a frame a rank) and its
+    reference; then timed steps and the dry run;
+    writes <workdir>/rank<r>.json with its launches over the main-path
+    runs (not the references or the faults) and its peak memory."""
+    import torch
+    import torch.distributed as dist
+    from hybridneuralrendering_tpu_torch import config
+    from hybridneuralrendering_tpu_torch.parallel import distributed as D
+    from hybridneuralrendering_tpu_torch.parallel import faults
+    from hybridneuralrendering_tpu_torch.parallel import mesh as M
+    from hybridneuralrendering_tpu_torch.train import step as TT
+    signal.signal(signal.SIGALRM, _deadline)
+    signal.alarm(PARALLEL_CHILD_TIMEOUT_S)
+    cfg = config.train_config()
+    t_setup = time.perf_counter()
+    if not D.initialize(f"127.0.0.1:{port}", PARALLEL_RANKS, rank,
+                        backend="gloo"):
+        raise RuntimeError("initialize made no process group")
+    try:
+        mesh = D.global_mesh(cfg.parallel)
+        st, grid, bank = D.replicated_start(
+            cfg, cfg.points.num_points - PARALLEL_GROW, mesh, DEVICE)
+        batches, noise = _parallel_inputs(cfg, 4 + PARALLEL_RANK_TIMED)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "setup_seconds": time.perf_counter() - t_setup,
+               "start": dict(D.state_digest(st), state=D.digest(st),
+                             grid=D.digest(grid))}
+        clone = D.clone_state
+        total = dict.fromkeys(read_launches(), 0)
+
+        def main_path(fn):
+            reset_launches()
+            res = fn()
+            torch.cuda.synchronize()
+            got = read_launches()
+            for k, v in got.items():
+                total[k] += v
+            return res, got
+
+        def sharded_step(st_):
+            res = M.sharded_loss_and_grads(mesh, st_, grid, batches[0], bank,
+                                           cfg, noise=noise[0])
+            TT.apply_updates(st_, res[1], res[2], cfg)
+            return res
+
+        torch.cuda.reset_peak_memory_stats()
+        frames = TT.stack_batches(batches[1:3])
+        fnoise = torch.stack(noise[1:3])
+        ids = D.local_frame_ids(2, mesh)
+        local = {k: v[ids.start:ids.stop] for k, v in frames.items()}
+
+        def frames_step(st_):
+            res = D.sharded_multi_loss_and_grads(st_, grid, local, bank, cfg,
+                                                 mesh, noise=fnoise)
+            TT.apply_updates(st_, res[1], res[2], cfg)
+            return res
+
+        def reference(fn):
+            """A single-process result's summary and the digest of all its
+            bits, which must be the same on every rank and again."""
+            res = fn()
+            return dict(_grads_summary(res), digest=D.digest(res))
+
+        def single():
+            return TT.loss_and_grads(clone(st), grid, batches[0], bank, cfg,
+                                     noise=noise[0])
+
+        def frames_single():
+            return TT.multi_loss_and_grads(clone(st), grid, frames, bank,
+                                           cfg, noise=fnoise)
+
+        # the comparisons under deterministic algorithms: without them the
+        # single-process reference itself varies from run to run
+        with _Deterministic():
+            out["single"] = reference(single)
+            s = clone(st)
+            res, launches = main_path(lambda: sharded_step(s))
+            out["rays"] = dict(_grads_summary(res), after=D.state_digest(s),
+                               launches=launches)
+            del s, res
+            for name in faults.FAULTS:
+                f = clone(st)
+                with faults.planted(name):
+                    res = sharded_step(f)
+                out["fault_" + name] = dict(_grads_summary(res),
+                                            after=D.state_digest(f))
+                del f, res
+            out["frames_single"] = reference(frames_single)
+            s = clone(st)
+            res, _ = main_path(lambda: frames_step(s))
+            out["frames"] = dict(_grads_summary(res),
+                                 after=D.state_digest(s))
+            del res
+            out["again"] = {"single": D.digest(single()),
+                            "frames_single": D.digest(frames_single())}
+        step = M.make_sharded_train_step(mesh, cfg)
+        ms = []
+        for i in range(1 + PARALLEL_RANK_TIMED):
+            dist.barrier()
+            t0 = time.perf_counter()
+            main_path(lambda: step(s, grid, batches[3 + i], bank,
+                                   noise=noise[3 + i]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["warmup_ms"], out["step_ms"] = ms[0], _stats(ms[1:])
+        t0 = time.perf_counter()
+        out["dryrun"], _ = main_path(lambda: D.dryrun(
+            cfg, mesh, clone(st), grid, bank, os.path.join(workdir, "ckpt"),
+            PARALLEL_GROW, DEVICE))
+        out["dryrun_seconds"] = time.perf_counter() - t0
+        out["launches"] = total
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _summary_errors(got, ref):
+    return {"loss": _rel(got["loss"], ref["loss"]),
+            "net_norm": _rel(got["net_norm"], ref["net_norm"]),
+            "table_norm": _rel(got["table_norm"], ref["table_norm"])}
+
+
+def _within(err):
+    return err["loss"] <= PARALLEL_LOSS_TOL and max(
+        err["net_norm"], err["table_norm"]) <= PARALLEL_NORM_TOL
+
+
+def phase_parallel_two_ranks(cfg):
+    """(b) PARALLEL_RANKS processes of this script share the card on gloo
+    at train_config() (1,568 rays a rank: the shards cut the 49 patches):
+    the ray-sharded step and the frame-sharded train_step_multi within
+    PARALLEL_LOSS_TOL / PARALLEL_NORM_TOL of the single process, with
+    equal state digests; the three planted faults rejected; the dry run's
+    digests equal.  Returns the ranks' summed main-path launches."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="parallel_")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), "--parallel-port", str(port), "--parallel-dir", workdir],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(PARALLEL_RANKS)]
+    try:
+        logs = [p.communicate(timeout=PARALLEL_CHILD_TIMEOUT_S)[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"parallel rank {r} exited {p.returncode}:\n"
+                               f"{text[-4000:]}")
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(workdir)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    errors = {"rays": _summary_errors(r0["rays"], r0["single"]),
+              "frames": _summary_errors(r0["frames"], r0["frames_single"])}
+    # every rank's start (state and grid), single-process references,
+    # sharded results and states must be the same, and each reference the
+    # same again
+    same = {k: all(r[k] == r0[k] for r in ranks)
+            for k in ("start", "single", "rays", "frames_single", "frames",
+                      "dryrun")}
+    same["again"] = all(r["again"][k] == r[k]["digest"] for r in ranks
+                        for k in r["again"])
+    from hybridneuralrendering_tpu_torch.parallel.faults import FAULTS
+    rejected = {}
+    for name in FAULTS:
+        errs = [_summary_errors(r["fault_" + name], r["single"])
+                for r in ranks]
+        split = any(r["fault_" + name]["after"] != r0["fault_" + name]
+                    ["after"] for r in ranks)
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        rejected[name] = dict(worst, states_differ=split,
+                              rejected=split or not _within(worst))
+    want = _one_step_launches(r0["rays"]["launches"])
+    bad = [k for k, ok in same.items() if not ok]
+    bad += [k for k, e in errors.items() if not _within(e)]
+    bad += [f"fault {k}" for k, f in rejected.items() if not f["rejected"]]
+    bad += [f"rank {r['rank']} launched {r['rays']['launches']}"
+            for r in ranks if r["rays"]["launches"] != want]
+    d = r0["dryrun"]
+    if d["added"] != PARALLEL_GROW or d["pruned"] < 32:
+        bad.append(f"dry run grew {d['added']}, pruned {d['pruned']}")
+    log("parallel_two_ranks", backend="gloo", world=PARALLEL_RANKS,
+        seconds=wall,
+        rays_per_rank=cfg.sampling.rays_per_batch // PARALLEL_RANKS,
+        errors=errors, equal=same,
+        faults=rejected, dryrun={k: d[k] for k in (
+            "losses", "added", "pruned", "num_live", "step")},
+        ranks=[{k: r[k] for k in (
+            "setup_seconds", "warmup_ms", "step_ms", "dryrun_seconds",
+            "max_memory_allocated", "launches")} for r in ranks])
+    if bad:
+        raise AssertionError(f"parallel_two_ranks failed: {bad}")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in r0["launches"]}
+
+
+def phase_parallel():
+    """Phase 19: ray- and frame-sharded data parallel (parallel/): (a) one
+    NCCL rank, then (b) two gloo ranks sharing the card.  Returns the
+    launches of both parts' main-path runs."""
+    import torch
+    from hybridneuralrendering_tpu_torch import config
+    cfg = config.train_config()
+    one = phase_parallel_one_rank(cfg)
+    torch.cuda.empty_cache()
+    two = phase_parallel_two_ranks(cfg)
+    return {k: one[k] + two[k] for k in one}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
+    # one rank of phase parallel_two_ranks (the phase starts them)
+    ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        return parallel_child(args.parallel_rank, args.parallel_port,
+                              args.parallel_dir)
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
     t_start = time.perf_counter()
@@ -4266,6 +4764,8 @@ def main(argv=None) -> int:
         del n_points, n_grid, n_params
         nerf_launches.append(phase_train_cli_nerf(root, ncfg))
         nerf_launches.append(phase_render_vid_nerf(root, ncfg))
+    torch.cuda.empty_cache()
+    parallel_launches = phase_parallel()
     signal.alarm(0)
     log("done", seconds=time.perf_counter() - t_start)
 
@@ -4274,7 +4774,7 @@ def main(argv=None) -> int:
                 + learnable_launches[k] + eval_launches[k]
                 + train_cli_launches[k] + sum(n[k] for n in nerf_launches)
                 + knob_launches[k] + sum(d[k] for d in driver_launches)
-                + pers_launches[k]
+                + pers_launches[k] + parallel_launches[k]
                 for k in serve_launches}
     src = "hybridneuralrendering_tpu_torch/csrc/"
 

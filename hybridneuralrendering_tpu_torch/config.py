@@ -1,13 +1,12 @@
 """Configuration of the port: the knobs the render and the training step
 read.
 
-A copy of the dataclasses of `hybridneuralrendering_tpu/config.py` that the
-render, training and lifecycle paths need (querier, points, aggregator,
-render, blur, sampling, loss, optim, probe), with the same fields and
-defaults, so that a preset here equals the JAX preset of the same name field
-by field (tests/test_torch_port_config.py checks it).  The parallel
-sub-config comes with the slice that uses it.  PRESETS carries
-the JAX package's names.
+A copy of the dataclasses of `hybridneuralrendering_tpu/config.py` (querier,
+points, aggregator, render, blur, sampling, loss, optim, probe, and the
+parallel layout that parallel/ reads), with the same fields and defaults, so
+that a preset here equals the JAX preset of the same name field by field
+(tests/test_torch_port_config.py checks it).  PRESETS carries the JAX
+package's names.
 
 `serve_config()` is the serving workload and `train_config()` the training
 workload: `scannet_full` at the shapes of the JAX package's benchmark scene
@@ -20,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -288,6 +287,18 @@ class ProbeConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Process-mesh layout (parallel/mesh.py): rays or frames shard over
+    `data`, the point cloud and the parameters are replicated on every
+    rank.  `compute_dtype` is kept for field equality with the JAX
+    package; no module reads it."""
+
+    data_axis: str = "data"
+    mesh_shape: Optional[Tuple[int, ...]] = None   # None: every rank on data
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "default"
     querier: QuerierConfig = field(default_factory=QuerierConfig)
@@ -299,6 +310,7 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     probe: ProbeConfig = field(default_factory=ProbeConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     image_hw: Tuple[int, int] = (480, 640)
     seed: int = 0
 

@@ -70,10 +70,13 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
            batch: Dict, cfg: Config,
            img_feat_n: Optional[torch.Tensor] = None, train: bool = False,
            noise: Optional[torch.Tensor] = None,
-           img_feat_staged=None, prob: bool = False) -> Dict:
+           img_feat_staged=None, prob: bool = False,
+           drop_mask: Optional[torch.Tensor] = None) -> Dict:
     """Render one batch of rays.  Deterministic unless `train`: then
     `noise` [R, z_depth_dim] in [0, 1) jitters the candidate samples and
-    the rays of aggregator.drop_ray_mask lose their image features.
+    the rays of `drop_mask` [R] lose their image features (by default
+    aggregator.drop_ray_mask over this batch's R rays; a ray shard of a
+    larger batch passes its rows of the larger batch's mask).
 
     batch: 'campos' [3], 'camrotc2w' [3,3], 'raydir' [R,3], 'bg_color' [3]
     (or 'bg_ray' [R,3], the plane background of train/step.maybe_add_bg_ray,
@@ -121,8 +124,9 @@ def render(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
         img_feat_n = compute_image_features(params, cfg,
                                             batch["images_nearest"])
 
-    drop_mask = None
-    if train and acfg.drop_ratio > 0:
+    if not train:
+        drop_mask = None
+    elif drop_mask is None and acfg.drop_ratio > 0:
         drop_mask = torch.as_tensor(agg.drop_ray_mask(
             acfg, R, cfg.sampling.dilation_patch_num,
             cfg.sampling.dilation_patch_size), device=raydir.device)

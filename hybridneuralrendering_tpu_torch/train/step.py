@@ -16,15 +16,17 @@ on a cached step by its first moment alone.
 `train_step_multi` takes F frames' batches in one optimizer step: the
 loss is the mean of the frames' totals, and the frames run one after
 another, each backward adding the gradient of its total / F, so one frame's
-graph is alive at a time.  The step updates the state's tensors in place
-and returns the state.  Float32 convolutions run without TF32
-(device.no_tf32), as in serving.
+graph is alive at a time.  The data-parallel steps of parallel/ reuse the
+pieces: `loss_of_render` (the blur and the losses after renderer.render),
+`loss_and_grads`' `loss` argument and `frames_backward`.  The step
+updates the state's tensors in place and returns the state.  Float32
+convolutions run without TF32 (device.no_tf32), as in serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,39 +77,28 @@ def maybe_add_bg_ray(batch: Dict, points: npts.NeuralPoints,
     return out
 
 
-def forward_with_blur(params: Dict, points: npts.NeuralPoints,
-                      grid: PointGrid, batch: Dict, cfg: Config,
-                      blur_kernels: Optional[torch.Tensor], train: bool,
-                      noise: Optional[torch.Tensor] = None,
-                      img_feat_staged=None) -> Dict:
-    """Render, then (in training) degrade the predicted colours: by the
-    learnable blur kernel's MLP when the aggregator has one, else by the
-    best bank kernel per patch."""
-    out = renderer.render(params, points, grid, batch, cfg, train=train,
-                          noise=noise, img_feat_staged=img_feat_staged)
-    if train:
-        pn = cfg.sampling.dilation_patch_num
-        ps = cfg.sampling.dilation_patch_size
-        if cfg.agg.learnable_blur_kernel:
-            with record_function("train.blur"):
-                out["coarse_raycolor"] = blur_mod.learnable_blur_update(
-                    params["aggregator"], cfg.agg, out["coarse_raycolor"],
-                    batch["gt_image"], pn, ps)
-        elif cfg.blur.add_blur_sim and blur_kernels is not None:
-            with record_function("train.blur"):
-                out["coarse_raycolor"] = blur_mod.blur_bank_update(
-                    out["coarse_raycolor"], batch["gt_image"], blur_kernels,
-                    pn, ps)
-    return out
-
-
-def loss_fn(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
-            batch: Dict, cfg: Config, blur_kernels: Optional[torch.Tensor],
-            noise: Optional[torch.Tensor] = None, img_feat_staged=None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    out = forward_with_blur(params, points, grid, batch, cfg, blur_kernels,
-                            train=True, noise=noise,
-                            img_feat_staged=img_feat_staged)
+def loss_of_render(params: Dict, out: Dict, batch: Dict, cfg: Config,
+                   blur_kernels: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of a render `out` of `batch`'s rays: the
+    predicted colours degraded (by the learnable blur kernel's MLP when the
+    aggregator has one, else by the best bank kernel per patch; `out`
+    holds every ray of the batch's patches), then the masked losses with
+    the frame weight, and the rays' hit share.  The seam after
+    renderer.render: parallel/mesh.py gathers the ray shards' renders and
+    calls it on the whole batch."""
+    pn = cfg.sampling.dilation_patch_num
+    ps = cfg.sampling.dilation_patch_size
+    if cfg.agg.learnable_blur_kernel:
+        with record_function("train.blur"):
+            out["coarse_raycolor"] = blur_mod.learnable_blur_update(
+                params["aggregator"], cfg.agg, out["coarse_raycolor"],
+                batch["gt_image"], pn, ps)
+    elif cfg.blur.add_blur_sim and blur_kernels is not None:
+        with record_function("train.blur"):
+            out["coarse_raycolor"] = blur_mod.blur_bank_update(
+                out["coarse_raycolor"], batch["gt_image"], blur_kernels,
+                pn, ps)
     fw = batch.get("frame_weight") if cfg.loss.use_frame_weight else None
     total, items = losses_mod.compute_losses(out, batch["gt_image"],
                                              cfg.loss, fw)
@@ -115,7 +106,18 @@ def loss_fn(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
     return total, items
 
 
-def _noise(batch: Dict, cfg: Config, generator, noise):
+def loss_fn(params: Dict, points: npts.NeuralPoints, grid: PointGrid,
+            batch: Dict, cfg: Config, blur_kernels: Optional[torch.Tensor],
+            noise: Optional[torch.Tensor] = None, img_feat_staged=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    out = renderer.render(params, points, grid, batch, cfg, train=True,
+                          noise=noise, img_feat_staged=img_feat_staged)
+    return loss_of_render(params, out, batch, cfg, blur_kernels)
+
+
+def candidate_noise(batch: Dict, cfg: Config, generator, noise):
+    """`noise` when given, else [R, z_depth_dim] drawn from `generator`
+    on the rays' device."""
     if noise is not None:
         return noise
     raydir = batch["raydir"]
@@ -123,7 +125,7 @@ def _noise(batch: Dict, cfg: Config, generator, noise):
                       generator=generator, device=raydir.device)
 
 
-def _grad_leaves(state: TrainState):
+def grad_leaves(state: TrainState):
     """Leaf copies of the network parameters and (when an attribute
     trains) the point table that collect the gradients of backward."""
     params = tree_map(lambda t: t.detach().requires_grad_(True),
@@ -135,7 +137,9 @@ def _grad_leaves(state: TrainState):
     return params, points
 
 
-def _grads(state: TrainState, params: Dict, points: npts.NeuralPoints):
+def leaf_grads(state: TrainState, params: Dict, points: npts.NeuralPoints):
+    """(network gradients, table gradient or None) that backward left on
+    grad_leaves' leaves; zeros where a leaf took none."""
     g_net = tree_map(lambda t: t.grad if t.grad is not None
                      else torch.zeros_like(t), params)
     g_table = None
@@ -149,25 +153,59 @@ def loss_and_grads(state: TrainState, grid: PointGrid, batch: Dict,
                    blur_kernels: Optional[torch.Tensor], cfg: Config,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None,
-                   img_feat_staged=None):
+                   img_feat_staged=None, loss: Callable = loss_fn):
     """The training loss of `state` on `batch` and its gradients.
 
     Returns (items, grads of the network parameters (the params' nesting),
     grad of the point table or None when no attribute trains).  `noise`
     [R, z_depth_dim] in [0, 1) jitters the candidates; when None it is
     drawn from `generator`.  `img_feat_staged` = (images_nearest,
-    (s1, s2, s3)) makes it a cached step."""
+    (s1, s2, s3)) makes it a cached step.  `loss` takes loss_fn's
+    arguments (parallel/mesh.py passes its ray-sharded loss)."""
     batch = device_batch(batch)
-    noise = _noise(batch, cfg, generator, noise)
-    params, points = _grad_leaves(state)
+    noise = candidate_noise(batch, cfg, generator, noise)
+    params, points = grad_leaves(state)
     with no_tf32():
         with record_function("train.forward"):
-            total, items = loss_fn(params, points, grid, batch, cfg,
-                                   blur_kernels, noise, img_feat_staged)
+            total, items = loss(params, points, grid, batch, cfg,
+                                blur_kernels, noise, img_feat_staged)
         with record_function("train.backward"):
             total.backward()
-    return ({k: v.detach() for k, v in items.items()},) + _grads(
+    return ({k: v.detach() for k, v in items.items()},) + leaf_grads(
         state, params, points)
+
+
+def frames_backward(params: Dict, points: npts.NeuralPoints,
+                    grid: PointGrid, batches: Dict,
+                    blur_kernels: Optional[torch.Tensor], cfg: Config,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    img_feat_staged=None, num_frames: Optional[int] = None
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """multi_loss_and_grads' loop: each frame of `batches` (a leading
+    frame axis on every leaf) renders and adds the gradient of its total /
+    num_frames (default: the frames given) to the leaves' .grad, one
+    frame's graph alive at a time.  Returns each frame's loss items."""
+    F = batches["raydir"].shape[0]
+    num_frames = num_frames or F
+    per_frame: List[Dict[str, torch.Tensor]] = []
+    for f in range(F):
+        batch = {k: v[f] for k, v in batches.items()}
+        staged = None
+        if img_feat_staged is not None:
+            images, stages = img_feat_staged
+            staged = (images[f], tuple(s[f] for s in stages))
+        noise_f = candidate_noise(batch, cfg, generator,
+                                  None if noise is None else noise[f])
+        with no_tf32():
+            with record_function("train.forward"):
+                total, items = loss_fn(params, points, grid, batch, cfg,
+                                       blur_kernels, noise_f, staged)
+            with record_function("train.backward"):
+                (total / num_frames).backward()
+        items.pop("ray_hit_frac")
+        per_frame.append({k: v.detach() for k, v in items.items()})
+    return per_frame
 
 
 def multi_loss_and_grads(state: TrainState, grid: PointGrid, batches: Dict,
@@ -185,28 +223,12 @@ def multi_loss_and_grads(state: TrainState, grid: PointGrid, batches: Dict,
     gradient of its total / F.  Returns (items: each loss item's mean over
     the frames, the network gradients, the table gradient or None)."""
     batches = device_batch(batches)
-    F = batches["raydir"].shape[0]
-    params, points = _grad_leaves(state)
-    per_frame: List[Dict[str, torch.Tensor]] = []
-    for f in range(F):
-        batch = {k: v[f] for k, v in batches.items()}
-        staged = None
-        if img_feat_staged is not None:
-            images, stages = img_feat_staged
-            staged = (images[f], tuple(s[f] for s in stages))
-        noise_f = _noise(batch, cfg, generator,
-                         None if noise is None else noise[f])
-        with no_tf32():
-            with record_function("train.forward"):
-                total, items = loss_fn(params, points, grid, batch, cfg,
-                                       blur_kernels, noise_f, staged)
-            with record_function("train.backward"):
-                (total / F).backward()
-        items.pop("ray_hit_frac")
-        per_frame.append({k: v.detach() for k, v in items.items()})
+    params, points = grad_leaves(state)
+    per_frame = frames_backward(params, points, grid, batches, blur_kernels,
+                                cfg, generator, noise, img_feat_staged)
     items = {k: torch.mean(torch.stack([it[k] for it in per_frame]))
              for k in per_frame[0]}
-    return (items,) + _grads(state, params, points)
+    return (items,) + leaf_grads(state, params, points)
 
 
 @torch.no_grad()

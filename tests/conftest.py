@@ -28,3 +28,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: runs for minutes on the CPU; Tier-1 deselects it "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "timeout(seconds): the test's time limit where the "
+        "pytest-timeout plugin is installed")

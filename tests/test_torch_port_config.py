@@ -103,7 +103,17 @@ EVAL_PRESETS = ["scannet_full", "scannet_hybrid", "scannet_scene101",
                 "scannet_vangoroom", "fixture_room", "tiny",
                 "nerf_synth_points", "nerf_synth_hybrid",
                 "fixture_nerf_points", "fixture_nerf_hybrid"]
-ALL_SUBCONFIGS = SUBCONFIGS + TRAIN_SUBCONFIGS
+ALL_SUBCONFIGS = SUBCONFIGS + TRAIN_SUBCONFIGS + ("parallel",)
+
+
+@pytest.mark.parametrize("name", EVAL_PRESETS)
+def test_parallel_subconfig_equal(name):
+    """The mesh layout (parallel/) of each preset equals JAX's, field by
+    field, and its field names too."""
+    jc, tc = JC.PRESETS[name](), TC.PRESETS[name]()
+    assert _fields(tc.parallel) == _fields(jc.parallel)
+    assert [f.name for f in dataclasses.fields(TC.ParallelConfig)] == \
+        [f.name for f in dataclasses.fields(JC.ParallelConfig)]
 
 
 @pytest.mark.parametrize("name", EVAL_PRESETS)

@@ -7,8 +7,10 @@ render and a training step (uncached and cached; also with the learnable
 blur kernel) on the card against the same on the CPU, the per-voxel K-NN
 against the CPU and the supervoxel path, the native batch sampler built
 on this machine, the frustum query, the edit render with rw2c, RAFT, the
-MVS point generation and a feed-forward step against the CPU.  They skip
-where torch.cuda.is_available() is false.
+MVS point generation and a feed-forward step against the CPU, and the
+data-parallel steps (one NCCL rank bit for bit with the plain steps, two
+gloo ranks sharing the card).  They skip where torch.cuda.is_available()
+is false.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -1482,3 +1484,152 @@ def test_train_step_ff_on_card_matches_cpu(cuda, learned):
     assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-4)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         assert b > 0 and a == pytest.approx(b, rel=1e-3)
+
+
+# ------------------------------------------------- data parallel on the card
+
+def _parallel_tiny(dev):
+    cfg = TC.tiny_test()
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                               use_frame_weight=True))
+    points, grid = synthetic.make_synthetic_scene(cfg, 1500, device=dev)
+    params = renderer.init_params(cfg, seed=0, device=dev)
+    st = tstate.create_train_state(params, points, cfg, device=dev)
+    bank = torch.as_tensor(blur.generate_kernel_bank(cfg.blur), device=dev)
+    frames = tstep.stack_batches([synthetic.make_synthetic_batch(
+        cfg, seed=s, device=dev) for s in (1, 2)])
+    noise = torch.rand((2, cfg.sampling.rays_per_batch,
+                        cfg.querier.z_depth_dim),
+                       generator=torch.Generator(device=dev).manual_seed(4),
+                       device=dev)
+    return cfg, st, grid, bank, frames, noise
+
+
+def _clone(st):
+    from hybridneuralrendering_tpu_torch.parallel import distributed as D
+    return D.clone_state(st)
+
+
+def _same(a, b):
+    """Two (items, g_net, g_table) bit for bit."""
+    assert set(a[0]) == set(b[0])
+    assert all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+    la, lb = tstate.tree_leaves(a[1]), tstate.tree_leaves(b[1])
+    assert len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+    assert torch.equal(a[2], b[2])
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """torch's deterministic algorithms, cuBLAS on its fixed workspace:
+    without them two plain steps on the card differ in their gradients'
+    last bits (PERF.md §7)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(prev)
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_sharded_steps_equal_plain(cuda, tmp_path,
+                                                  deterministic):
+    """One rank on NCCL: the ray-sharded step and the frame-sharded
+    train_step_multi equal the plain steps bit for bit (loss items,
+    gradients, the state after), with the plain steps' launches."""
+    from hybridneuralrendering_tpu_torch.parallel import distributed as D
+    from hybridneuralrendering_tpu_torch.parallel import mesh as M
+    assert D.initialize(init_method=f"file://{tmp_path}/rdv",
+                        num_processes=1, process_id=0, backend="nccl")
+    try:
+        cfg, st, grid, bank, frames, noise = _parallel_tiny(cuda)
+        m = D.global_mesh(cfg.parallel)
+        one = {k: v[0] for k, v in frames.items()}
+        plain = tstep.loss_and_grads(_clone(st), grid, one, bank, cfg,
+                                     noise=noise[0])
+        before = TS.k_smallest.launches, TSS.segment_sum.launches
+        sharded = M.sharded_loss_and_grads(m, _clone(st), grid, one,
+                                           bank, cfg, noise=noise[0])
+        torch.cuda.synchronize()
+        assert (TS.k_smallest.launches - before[0],
+                TSS.segment_sum.launches - before[1]) == (1, 2)
+        _same(plain, sharded)
+        _same(tstep.multi_loss_and_grads(_clone(st), grid, frames, bank,
+                                         cfg, noise=noise),
+              D.sharded_multi_loss_and_grads(_clone(st), grid, frames,
+                                             bank, cfg, m, noise=noise))
+        a, b = _clone(st), _clone(st)
+        tstep.train_step(a, grid, one, bank, cfg, noise=noise[0])
+        M.make_sharded_train_step(m, cfg)(b, grid, one, bank,
+                                          noise=noise[0])
+        assert torch.equal(a.points.table, b.points.table)
+        assert all(torch.equal(x, y) for x, y in zip(
+            tstate.tree_leaves(a.params), tstate.tree_leaves(b.params)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["torchrun_env", "host_names"])
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path, monkeypatch,
+                                            route):
+    """Two ranks on a one-card host raise before the process group is
+    made: counted from torchrun's LOCAL_WORLD_SIZE, or from the host names
+    both ranks write into the rendezvous store (two threads here)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hybridneuralrendering_tpu_torch.parallel import distributed as D
+    if torch.cuda.device_count() > 1:
+        pytest.skip("more than one card: nccl may place two ranks")
+    if route == "torchrun_env":
+        monkeypatch.setenv("LOCAL_RANK", "0")
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        ranks = [0]
+    else:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+        ranks = [0, 1]
+
+    def rank(r):
+        with pytest.raises(ValueError, match="device per rank"):
+            D.initialize(init_method=f"file://{tmp_path}/rdv",
+                         num_processes=2, process_id=r, backend="nccl")
+
+    with ThreadPoolExecutor(len(ranks)) as pool:
+        for f in [pool.submit(rank, r) for r in ranks]:
+            f.result(timeout=120)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario", ["parity", "dryrun"])
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path, scenario):
+    """Two processes on gloo with CUDA tensors (all_gather, all_reduce,
+    broadcast, barrier): parity's sharded losses equal the single
+    process's within float32 order; the dry run's digests are equal."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "hybridneuralrendering_tpu_torch.parallel.distributed",
+         "--init-method", f"file://{tmp_path}/rdv", "--num-processes", "2",
+         "--process-id", str(r), "--scenario", scenario, "--backend", "gloo",
+         "--device", "cuda", "--workdir", str(tmp_path),
+         "--out", str(tmp_path / f"r{r}.json")], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    d = [json.load(open(tmp_path / f"r{r}.json")) for r in range(2)]
+    assert d[0] == d[1]
+    if scenario == "parity":
+        for k in ("frames_loss", "rays_loss"):
+            assert d[0][k] == pytest.approx(d[0][k + "_single"], rel=1e-5)
+    else:
+        assert d[0]["added"] == 64 and d[0]["pruned"] >= 32
